@@ -35,6 +35,11 @@
 //     (in, out) layout) and a float4 of activations per k.
 //   * Lanes past B are masked (no loads, no stores), not padded.
 //
+// Built with -fmad=false (hybrid_ode_torch/ops/fused_rk4.py): the matmul
+// loops use explicit fmaf; everything else rounds after each operation, as
+// the plain PyTorch version's tensor ops do, so the adjoint's recomputed
+// ReLU masks match the plain version's (kernel-vs-plain stays ~1e-6).
+//
 // Interface: a plain C function taking device pointers and the stream,
 // loaded with ctypes (hybrid_ode_torch/ops/fused_rk4.py). It returns the
 // cudaError_t of the launch.

@@ -8,7 +8,7 @@ path (`create_data_arrays`) on a CSV read by the `csv` module:
   * sliding windows per subject, subjects in SORTED key order (as
     `DataFrame.groupby` walks them), rows in file order within a subject
   * z-score over all observed points; NaN states become mask=0
-Arrays go to the device per batch, in `evaluate`.
+Arrays go to the device per batch (`batch_to_tensors`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import dataclasses
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 STATE_COLS = ["glucose_mmol_L", "insulin_pmol_L", "glucagon_pmol_L", "glp1_pmol_L"]
 
@@ -256,6 +257,12 @@ def batch_iterator(ds: GlucoseDataset, batch_size: int, shuffle: bool = True, se
         if drop_remainder and len(idx) < batch_size:
             break
         yield ds.batch(idx)
+
+
+def batch_to_tensors(batch: Dict, device) -> Dict:
+    """Numpy batch dict -> tensors on `device` (nested dicts included)."""
+    return {k: batch_to_tensors(v, device) if isinstance(v, dict)
+            else torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
 
 
 def pad_batch(batch: Dict, batch_size: int) -> Tuple[Dict, np.ndarray]:

@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from hybrid_ode_torch.data.dataset import GlucoseDataset, batch_iterator, pad_batch
+from hybrid_ode_torch.data.dataset import GlucoseDataset, batch_iterator, batch_to_tensors, pad_batch
 from hybrid_ode_torch.evals.metrics import (
     STATE_NAMES,
     compute_calibration_error,
@@ -45,17 +45,10 @@ def _device_of(params: Any) -> torch.device:
     return params["nn"]["w0"].device
 
 
-def _to_device(batch: Dict, device: torch.device) -> Dict:
-    """Numpy batch dict -> tensors on `device` (nested dicts included)."""
-    return {k: _to_device(v, device) if isinstance(v, dict)
-            else torch.as_tensor(np.asarray(v), device=device)
-            for k, v in batch.items()}
-
-
 @torch.no_grad()
 def _predict(params: Any, batch: Dict, config: HybridConfig) -> np.ndarray:
     """Point forward pass of one (padded) batch -> (B, T, 6) on the host."""
-    b = _to_device(batch, _device_of(params))
+    b = batch_to_tensors(batch, _device_of(params))
     controls = with_context(params, b, controls_from_batch(b), config)
     preds = batched_forward(params, b["initial_state"], b["time_points"], controls, config)
     return preds.cpu().numpy()

@@ -1,8 +1,10 @@
 """Hybrid mechanistic-ODE + NN-residual model: dx/dt = f_physio + g_NN.
 
-Port of `hybrid_ode_tpu/models/hybrid.py`, serving path: configuration,
-parameter initialisation, the hybrid field, single and batched forward
-solves, the fused-kernel dispatch and the context encoder. Parameters are a
+Port of `hybrid_ode_tpu/models/hybrid.py`, serving and training paths:
+configuration, parameter initialisation, the hybrid field, single and
+batched forward solves, the fused-kernel dispatch (differentiable through
+the adjoint kernel), the context encoder, the multiple-shooting view and
+`hybrid_loss`. Parameters are a
 nested dict {'ode': {...}, 'nn': {...}, ['enc'], ['norm']} of tensors, the
 JAX pytree's layout, so JAX checkpoints load as they are
 (`hybrid_ode_torch/utils/convert.py`).
@@ -21,7 +23,12 @@ import torch
 
 from hybrid_ode_torch.dynamics.controls import Controls, eval_controls
 from hybrid_ode_torch.dynamics.ode_core import make_ode_params, mechanistic_field
-from hybrid_ode_torch.dynamics.residual import init_mlp_params, mlp_apply, residual_apply
+from hybrid_ode_torch.dynamics.residual import (
+    init_mlp_params,
+    mlp_apply,
+    mlp_l2,
+    residual_apply,
+)
 from hybrid_ode_torch.solvers.api import odeint
 
 STATE_NAMES = ("Glucose", "Insulin", "Glucagon", "GLP1", "GE", "FFA")
@@ -294,6 +301,123 @@ def controls_from_batch(batch: Mapping[str, Any]) -> Optional[Controls]:
     if not ext:
         return None
     return Controls(ts=batch["time_points"], signals=dict(ext))
+
+
+def segment_batch(batch: Mapping[str, Any], k: int) -> Dict[str, Any]:
+    """Multiple-shooting view: split each T-point window into k segments,
+    each re-initialised from the OBSERVED state at its left edge; a virtual
+    batch of B*k windows with (T-1)/k + 1 points each."""
+    obs = batch["observations"]
+    ts = batch["time_points"]
+    B, T = ts.shape
+    if (T - 1) % k != 0:
+        raise ValueError(f"shooting_segments={k} must divide T-1={T-1}")
+    L = (T - 1) // k
+    idx = (torch.arange(k)[:, None] * L + torch.arange(L + 1)[None, :]).reshape(-1).to(ts.device)
+
+    def seg(x):
+        return x.index_select(1, idx).reshape((B * k, L + 1) + tuple(x.shape[2:]))
+
+    out: Dict[str, Any] = {
+        "observations": seg(obs),
+        "time_points": seg(ts),
+        "external_inputs": {n: seg(v) for n, v in (batch.get("external_inputs") or {}).items()},
+    }
+    out["initial_state"] = out["observations"][:, 0]
+    if batch.get("loss_weights") is not None:
+        out["loss_weights"] = batch["loss_weights"]
+    if batch.get("mask") is not None:
+        m = seg(batch["mask"])
+        m = m * m[:, :1]  # a segment with an unobserved left edge cannot be shot from it
+        out["mask"] = m
+        if batch.get("mask_channels") is not None:
+            out["mask_channels"] = seg(batch["mask_channels"]) * m[..., None]
+    return out
+
+
+def physics_indices(generator: Optional[torch.Generator], n_intervals: int,
+                    n_pts: int) -> torch.Tensor:
+    """The intervals the physics term samples, shared across the batch (the
+    JAX package draws `jax.random.permutation(key, T-1)[:n_pts]`)."""
+    return torch.randperm(n_intervals, generator=generator)[:n_pts]
+
+
+def _per_point_controls(controls: Optional[Controls], n_pts: int) -> Optional[Controls]:
+    """Controls with (B, ...) signals broadcast to (B, n_pts, ...)."""
+    if controls is None:
+        return None
+
+    def at_points(v):
+        return v if v.ndim == 0 else v[:, None].expand(v.shape[0], n_pts, *v.shape[1:])
+
+    return Controls(ts=at_points(controls.ts),
+                    signals={k: at_points(v) for k, v in controls.signals.items()})
+
+
+def hybrid_loss(
+    params: Mapping[str, Any],
+    batch: Mapping[str, Any],
+    generator: Optional[torch.Generator] = None,
+    config: HybridConfig = HybridConfig(),
+    lambda1: float = 1.0,
+    lambda2: float = 1.0,
+    use_physics_loss: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Combined loss; returns (total, components dict).
+
+    batch (tensors): initial_state (B,n), observations (B,T,n), time_points
+    (B,T), external_inputs {name: (B,T)}, optional mask (B,T), mask_channels
+    (B,T,n) and loss_weights (n,). Data term: masked / channel-masked /
+    weighted MSE; physics term: finite differences against the field at
+    interval midpoints, on intervals drawn from `generator`; L2 on the MLP
+    weights (weighted by lambda2 twice, as in the JAX package)."""
+    if config.shooting_segments > 1:
+        batch = segment_batch(batch, config.shooting_segments)
+    y0 = batch["initial_state"]
+    obs = batch["observations"]
+    ts = batch["time_points"]
+    controls = with_context(params, batch, controls_from_batch(batch), config)
+    mask = batch.get("mask")
+    preds = batched_forward(params, y0, ts, controls, config)
+    solver_success = torch.ones((), dtype=preds.dtype, device=preds.device)  # fixed-step solvers
+
+    w_state = batch.get("loss_weights")
+    se = (preds - obs) ** 2
+    if w_state is not None:
+        se = se * w_state
+    mask_ch = batch.get("mask_channels")
+    if mask_ch is not None:
+        data_loss = torch.sum(mask_ch * se) / (torch.sum(mask_ch) + 1e-8)
+    elif mask is None:
+        data_loss = torch.mean(se)
+    else:
+        w = mask[..., None]
+        data_loss = torch.sum(w * se) / (torch.sum(w) * obs.shape[-1] + 1e-8)
+
+    physics_loss = torch.zeros((), dtype=preds.dtype, device=preds.device)
+    if use_physics_loss and lambda1 > 0:
+        T = obs.shape[1]
+        n_pts = min(config.n_physics_points, T - 1)
+        idx = physics_indices(generator, T - 1, n_pts).to(ts.device)
+        t_l, t_r = ts[:, idx], ts[:, idx + 1]
+        y_l, y_r = preds[:, idx], preds[:, idx + 1]
+        dt = (t_r - t_l)[..., None]
+        fd = (y_r - y_l) / torch.where(dt == 0, torch.ones_like(dt), dt)
+        # field at the interval MIDPOINT: O(h^2)-consistent with the difference
+        rhs = hybrid_field(0.5 * (t_l + t_r), 0.5 * (y_l + y_r), params,
+                           _per_point_controls(controls, n_pts), config)
+        pe = (fd - rhs) ** 2
+        if w_state is not None:
+            pe = pe * w_state
+        physics_loss = torch.mean(pe)
+
+    reg_loss = torch.zeros((), dtype=preds.dtype, device=preds.device)
+    if lambda2 > 0 and config.use_nn:
+        reg_loss = mlp_l2(params["nn"], l2_weight=lambda2)
+
+    total = data_loss + lambda1 * physics_loss + lambda2 * reg_loss
+    return total, {"data": data_loss, "physics": physics_loss, "reg": reg_loss,
+                   "solver_success": solver_success}
 
 
 def params_to_flat(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

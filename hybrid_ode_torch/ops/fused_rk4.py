@@ -1,25 +1,31 @@
-"""Fused full-trajectory RK4 for the hybrid ODE-NN field (forward).
+"""Fused full-trajectory RK4 for the hybrid ODE-NN field: forward and adjoint.
 
-Port of the forward half of `hybrid_ode_tpu/ops/pallas_rk4.py`. The TPU
-kernel `_fwd_kernel` becomes the hand-written CUDA kernel in
-`hybrid_ode_torch/csrc/fused_rk4_fwd.cu`, built with nvcc for sm_90a at
-first use and bound with ctypes. Beside it lives the plain PyTorch version
-of the same function (`_fwd_plain`), an RK4 loop over the transposed
-(features, batch) layout as `_rk4_substep_t` writes it.
+Port of `hybrid_ode_tpu/ops/pallas_rk4.py`. Its two default TPU kernels
+become hand-written CUDA kernels for sm_90a, built with nvcc at first use
+and bound with ctypes:
+  * `_fwd_kernel` -> `csrc/fused_rk4_fwd.cu`: integrates the whole
+    trajectory and writes the state at every observation point;
+  * `_bwd_kernel_hand` -> `csrc/fused_rk4_bwd.cu`: the reverse-time discrete
+    RK4 adjoint from the saved observation-grid trajectory, with the MLP and
+    mechanistic transposes written by hand.
+Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`),
+the same arithmetic in torch ops on the same (features, batch) layout.
 
-`fused_rk4_fwd` is the wrapper: on a CPU tensor it runs the plain version,
-on a CUDA tensor it launches the kernel (and counts the launch in
-`fused_rk4_fwd_launches`) or raises. There is no fallback between the two.
+`fused_rk4_fwd` and `fused_rk4_bwd` are the wrappers: on CPU tensors they run
+the plain version, on CUDA tensors they launch the kernel (and count the
+launch in `fused_rk4_fwd_launches` / `fused_rk4_bwd_launches`) or raise.
+There is no fallback between the two. `FusedRK4` pairs them as a
+`torch.autograd.Function`; `fused_rk4_hybrid` is the differentiable entry.
 
-Layouts (the kernel's, equivalent to the TPU packing):
+Layouts (the kernels', equivalent to the TPU packing):
   * y0 (B, 6); ts / meal / tvns transposed to (T, B); context to (C, B).
   * MLP weights keep the (in, out) layout, layer 0's input padded to a
     multiple of 8, hidden widths to a multiple of 4, the last layer's output
     to 8 rows; all layers then all biases in one flat f32 buffer.
   * mechanistic parameters packed in PARAM_ORDER into a (32,) row.
-  * output (T, 6, B), returned to callers as (B, T, 6).
+  * trajectory and its cotangent (T, 6, B), returned to callers as (B, T, 6).
 GD is 0 on this path (k_GE = k_GE0) and the insulin coupling is fixed at
-0.01, exactly as in the TPU kernel.
+0.01, exactly as in the TPU kernels.
 """
 
 from __future__ import annotations
@@ -31,26 +37,32 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 #: mech-param packing order for the (32,) parameter row
 PARAM_ORDER = (
     "a_GI", "k_I", "rho", "G_b", "I_b", "E_max", "EC_50", "Glu_b",
     "V_max", "K_m", "k_L", "k_GE0", "IGD_50", "g", "p_7", "p_8", "p_9",
 )
+N_PARAMS = len(PARAM_ORDER)
 N_FEATURES = 9  # [t, y(6), GLP1, tVNS] before the context rows
 N_OUT = 8       # last layer's output rows (6 states + 2 zero rows)
 
 #: kernel launches since the count was last set to 0 (plain runs do not count)
 fused_rk4_fwd_launches = 0
+fused_rk4_bwd_launches = 0
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "fused_rk4_fwd.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "build"
+# -fmad=false: outside the explicit fmaf of the matmul loops, every product
+# and sum rounds on its own, as the plain version's tensor ops do, so the
+# adjoint's recomputed ReLU masks agree with the plain version's
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -68,8 +80,31 @@ class PackedWeights(NamedTuple):
     n_layers: int
 
 
+def _layer_shapes(in_pad: int, hidden: int, n_layers: int) -> List[Tuple[int, int]]:
+    return [(in_pad if i == 0 else hidden, N_OUT if i == n_layers else hidden)
+            for i in range(n_layers + 1)]
+
+
+def _unflatten(flat: torch.Tensor, in_pad: int, hidden: int, n_layers: int) -> PackedWeights:
+    """Views of the per-layer weights and biases inside `flat`."""
+    shapes = _layer_shapes(in_pad, hidden, n_layers)
+    ws, bs, off = [], [], 0
+    for shape in shapes:
+        ws.append(flat[off: off + shape[0] * shape[1]].view(shape))
+        off += shape[0] * shape[1]
+    for _, cols in shapes:
+        bs.append(flat[off: off + cols])
+        off += cols
+    if off != flat.numel():
+        raise ValueError(f"flat weights hold {flat.numel()} values, the layout {off}")
+    return PackedWeights(flat, tuple(ws), tuple(bs), in_pad, hidden, n_layers)
+
+
 def _pack_weights(nn_params: Dict[str, torch.Tensor], n_layers: int) -> PackedWeights:
-    """Pad the MLP weights to the kernel layout (see module docstring)."""
+    """Pad the MLP weights to the kernel layout (see module docstring).
+
+    Built from differentiable ops (`F.pad`, `cat`), so a gradient of `flat`
+    reaches `nn_params` through autograd."""
     w0 = nn_params["w0"]
     in_dim, hid = w0.shape
     if any(f"w{i}" not in nn_params for i in range(n_layers + 1)) or f"w{n_layers + 1}" in nn_params:
@@ -78,34 +113,20 @@ def _pack_weights(nn_params: Dict[str, torch.Tensor], n_layers: int) -> PackedWe
         raise ValueError("the last layer has more than 8 outputs")
     in_pad, hp = _round_up(in_dim, 8), _round_up(hid, 4)
     ws, bs = [], []
-    for i in range(n_layers + 1):
+    for i, (rows, cols) in enumerate(_layer_shapes(in_pad, hp, n_layers)):
         w = nn_params[f"w{i}"].to(torch.float32)
         b = nn_params[f"b{i}"].to(torch.float32)
-        rows = in_pad if i == 0 else hp
-        cols = N_OUT if i == n_layers else hp
         if i > 0 and w.shape[0] != hid or i < n_layers and w.shape[1] != hid:
             raise ValueError(f"layer {i} has shape {tuple(w.shape)}; hidden width is {hid}")
-        wp = torch.zeros((rows, cols), dtype=torch.float32, device=w.device)
-        wp[: w.shape[0], : w.shape[1]] = w
-        bp = torch.zeros((cols,), dtype=torch.float32, device=w.device)
-        bp[: b.shape[0]] = b
-        ws.append(wp)
-        bs.append(bp)
-    flat = torch.cat([w.reshape(-1) for w in ws] + bs)
-    views_w, views_b, off = [], [], 0
-    for w in ws:
-        views_w.append(flat[off: off + w.numel()].view(w.shape))
-        off += w.numel()
-    for b in bs:
-        views_b.append(flat[off: off + b.numel()])
-        off += b.numel()
-    return PackedWeights(flat, tuple(views_w), tuple(views_b), in_pad, hp, n_layers)
+        ws.append(F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0])).reshape(-1))
+        bs.append(F.pad(b, (0, cols - b.shape[0])))
+    return _unflatten(torch.cat(ws + bs), in_pad, hp, n_layers)
 
 
 def _pack_params(ode_params: Dict[str, torch.Tensor]) -> torch.Tensor:
     """(32,) f32 row of the mechanistic parameters in PARAM_ORDER."""
     vals = [torch.as_tensor(ode_params[n]).to(torch.float32).reshape(1) for n in PARAM_ORDER]
-    pad = torch.zeros((32 - len(PARAM_ORDER),), dtype=torch.float32, device=vals[0].device)
+    pad = torch.zeros((32 - N_PARAMS,), dtype=torch.float32, device=vals[0].device)
     return torch.cat(vals + [pad])
 
 
@@ -118,7 +139,7 @@ def _prep_inputs(y0, ts, meal, tvns, context):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 def _f32(x: float) -> float:
@@ -126,70 +147,203 @@ def _f32(x: float) -> float:
     return torch.tensor(x, dtype=torch.float32).item()
 
 
+def _effective_params(pvec, ctx_t, ctx_param_idx, ctx_param_mode) -> Dict[str, torch.Tensor]:
+    """PARAM_ORDER name -> scalar, or a per-sample row where the context acts."""
+    P = {name: pvec[i] for i, name in enumerate(PARAM_ORDER)}
+    for row, pidx in enumerate(ctx_param_idx):
+        name = PARAM_ORDER[pidx]
+        c = ctx_t[row]
+        P[name] = c if ctx_param_mode == "abs" else P[name] * torch.exp(c)
+    return P
+
+
+def _fixed_features(ctx_t, ctx_param_idx, in_pad, B, like) -> List[torch.Tensor]:
+    """MLP feature rows after the first 9: feature-mode context, zero pad."""
+    feats_ctx = None if ctx_param_idx else ctx_t  # params mode consumes the context
+    n_feat = N_FEATURES + (0 if feats_ctx is None else feats_ctx.shape[0])
+    fixed = [] if feats_ctx is None else [feats_ctx]
+    if in_pad > n_feat:
+        fixed.append(torch.zeros((in_pad - n_feat, B), dtype=like.dtype, device=like.device))
+    return fixed
+
+
+def _stage_eval(t, Y, m, v, P, fixed, pw: PackedWeights):
+    """One field evaluation: (k (6, B), features X, post-ReLU activations)."""
+    G, I, Glu, GLP1, FFA = Y[0], Y[1], Y[2], Y[3], Y[5]
+    Pi = 1.0 + P["rho"] * GLP1
+    dI = Pi * P["a_GI"] * (G - P["G_b"]) - P["k_I"] * (I - P["I_b"])
+    glp1_eff = P["E_max"] * GLP1 / (P["EC_50"] + GLP1)
+    dGlu = -glp1_eff * (Glu - P["Glu_b"])
+    dGLP1 = P["V_max"] * G / (P["K_m"] + G) - P["k_L"] * GLP1
+    dFFA = -P["p_7"] * FFA - P["p_8"] * I * FFA + P["p_9"] * G * FFA
+    dG = m - 0.01 * (I - P["I_b"]) + 0.005 * (Glu - P["Glu_b"]) - P["k_GE0"] * G
+    dY = torch.stack([dG, dI, dGlu, dGLP1, torch.zeros_like(G), dFFA])
+    X = torch.cat([t[None], Y, GLP1[None], v[None]] + fixed)
+    acts, Hh = [], X
+    for li in range(pw.n_layers):
+        Hh = torch.relu(pw.ws[li].t() @ Hh + pw.bs[li][:, None])
+        acts.append(Hh)
+    R = pw.ws[pw.n_layers].t() @ Hh + pw.bs[pw.n_layers][:, None]
+    return dY + R[:6], X, acts
+
+
+def _substep(Y, ts_l, ts_r, meal_l, meal_r, tvns_l, tvns_r, j, substeps, P, fixed, pw):
+    """One RK4 substep as the kernels take it; returns (Y', h, [(X, acts)] x 4)."""
+    inv_s = _f32(1.0 / substeps)
+    h = (ts_r - ts_l) * inv_s
+    t = ts_l + float(j) * h
+
+    def ctrl(alpha):
+        a = _f32(_f32(alpha) * inv_s)
+        return meal_l + (meal_r - meal_l) * a, tvns_l + (tvns_r - tvns_l) * a
+
+    (m0, v0), (m1, v1), (m2, v2) = ctrl(j), ctrl(j + 0.5), ctrl(j + 1.0)
+    k1, X1, a1 = _stage_eval(t, Y, m0, v0, P, fixed, pw)
+    k2, X2, a2 = _stage_eval(t + 0.5 * h, Y + 0.5 * h * k1, m1, v1, P, fixed, pw)
+    k3, X3, a3 = _stage_eval(t + 0.5 * h, Y + 0.5 * h * k2, m1, v1, P, fixed, pw)
+    k4, X4, a4 = _stage_eval(t + h, Y + h * k3, m2, v2, P, fixed, pw)
+    Y = Y + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return Y, h, ((X1, a1), (X2, a2), (X3, a3), (X4, a4))
+
+
 def _fwd_plain(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                substeps: int, ctx_param_idx: Sequence[int] = (),
                ctx_param_mode: str = "mul") -> torch.Tensor:
-    """The kernel's function in torch ops, on the kernel's inputs: (T, 6, B)."""
-    B = y0.shape[0]
-    T = ts_t.shape[0]
-    P = {name: pvec[i] for i, name in enumerate(PARAM_ORDER)}
-    feats_ctx = ctx_t
-    if ctx_param_idx:
-        for row, pidx in enumerate(ctx_param_idx):
-            name = PARAM_ORDER[pidx]
-            c = ctx_t[row]
-            P[name] = c if ctx_param_mode == "abs" else P[name] * torch.exp(c)
-        feats_ctx = None  # consumed: not an MLP feature
-    n_feat = N_FEATURES + (0 if feats_ctx is None else feats_ctx.shape[0])
-    fixed = []
-    if feats_ctx is not None:
-        fixed.append(feats_ctx)
-    if pw.in_pad > n_feat:
-        fixed.append(torch.zeros((pw.in_pad - n_feat, B), dtype=y0.dtype, device=y0.device))
-
-    def field(t, Y, m, v):
-        G, I, Glu, GLP1, FFA = Y[0], Y[1], Y[2], Y[3], Y[5]
-        Pi = 1.0 + P["rho"] * GLP1
-        dI = Pi * P["a_GI"] * (G - P["G_b"]) - P["k_I"] * (I - P["I_b"])
-        glp1_eff = P["E_max"] * GLP1 / (P["EC_50"] + GLP1)
-        dGlu = -glp1_eff * (Glu - P["Glu_b"])
-        dGLP1 = P["V_max"] * G / (P["K_m"] + G) - P["k_L"] * GLP1
-        dFFA = -P["p_7"] * FFA - P["p_8"] * I * FFA + P["p_9"] * G * FFA
-        dG = m - 0.01 * (I - P["I_b"]) + 0.005 * (Glu - P["Glu_b"]) - P["k_GE0"] * G
-        dY = torch.stack([dG, dI, dGlu, dGLP1, torch.zeros_like(G), dFFA])
-        Hh = torch.cat([t[None], Y, GLP1[None], v[None]] + fixed)
-        for li in range(pw.n_layers):
-            Hh = torch.relu(pw.ws[li].t() @ Hh + pw.bs[li][:, None])
-        R = pw.ws[pw.n_layers].t() @ Hh + pw.bs[pw.n_layers][:, None]
-        return dY + R[:6]
-
-    inv_s = _f32(1.0 / substeps)
+    """The forward kernel's function in torch ops, on its inputs: (T, 6, B)."""
+    P = _effective_params(pvec, ctx_t, ctx_param_idx, ctx_param_mode)
+    fixed = _fixed_features(ctx_t, ctx_param_idx, pw.in_pad, y0.shape[0], y0)
     Y = y0.t()
     out = [Y]
-    for i in range(T - 1):
-        ts_l, ts_r = ts_t[i], ts_t[i + 1]
-        meal_l, meal_r = meal_t[i], meal_t[i + 1]
-        tvns_l, tvns_r = tvns_t[i], tvns_t[i + 1]
-        h = (ts_r - ts_l) * inv_s
+    for i in range(ts_t.shape[0] - 1):
         for j in range(substeps):
-            t = ts_l + float(j) * h
-
-            def ctrl(alpha):
-                a = _f32(_f32(alpha) * inv_s)
-                return meal_l + (meal_r - meal_l) * a, tvns_l + (tvns_r - tvns_l) * a
-
-            (m0, v0), (m1, v1), (m2, v2) = ctrl(j), ctrl(j + 0.5), ctrl(j + 1.0)
-            k1 = field(t, Y, m0, v0)
-            k2 = field(t + 0.5 * h, Y + 0.5 * h * k1, m1, v1)
-            k3 = field(t + 0.5 * h, Y + 0.5 * h * k2, m1, v1)
-            k4 = field(t + h, Y + h * k3, m2, v2)
-            Y = Y + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+            Y, _, _ = _substep(Y, ts_t[i], ts_t[i + 1], meal_t[i], meal_t[i + 1],
+                               tvns_t[i], tvns_t[i + 1], j, substeps, P, fixed, pw)
         out.append(Y)
     return torch.stack(out)
 
 
+def _stage_bwd(gd, X, acts, P, pw: PackedWeights, acc):
+    """Transpose of `_stage_eval` for the field cotangent gd (6, B): returns
+    the stage-state cotangent (6, B) and adds the weight, bias, per-sample
+    parameter and feature-mode context cotangents into `acc`
+    (`_bwd_kernel_hand.stage_bwd`, pallas_rk4.py:522-604)."""
+    dws, dbs, dp, dctx = acc["dw"], acc["db"], acc["dp"], acc["dctx"]
+    L = pw.n_layers
+    g = F.pad(gd, (0, 0, 0, N_OUT - 6))
+    dws[L] += acts[L - 1] @ g.t()
+    dbs[L] += g.sum(1)
+    u = pw.ws[L] @ g
+    for li in range(L - 1, -1, -1):
+        gz = u * (acts[li] > 0)
+        inp = acts[li - 1] if li > 0 else X
+        dws[li] += inp @ gz.t()
+        dbs[li] += gz.sum(1)
+        u = pw.ws[li] @ gz
+    dX = u
+    if dctx is not None:
+        dctx += dX[N_FEATURES: N_FEATURES + dctx.shape[0]]
+
+    # mechanistic transpose (hand-derived Jacobian rows)
+    G, I, Glu, GLP1, FFA = X[1], X[2], X[3], X[4], X[6]
+    gG, gI, gGlu, gGLP, gFFA = gd[0], gd[1], gd[2], gd[3], gd[5]
+    Pi = 1.0 + P["rho"] * GLP1
+    Gd = G - P["G_b"]
+    Glud = Glu - P["Glu_b"]
+    e_den = P["EC_50"] + GLP1
+    glp1_eff = P["E_max"] * GLP1 / e_den
+    km_den = P["K_m"] + G
+    mech_G = (gI * (Pi * P["a_GI"]) + gGLP * (P["V_max"] * P["K_m"] / (km_den * km_den))
+              + gFFA * (P["p_9"] * FFA) - gG * P["k_GE0"])
+    mech_I = -gI * P["k_I"] - gFFA * (P["p_8"] * FFA) - 0.01 * gG
+    mech_Glu = -gGlu * glp1_eff + 0.005 * gG
+    mech_GLP = (gI * (P["rho"] * P["a_GI"] * Gd)
+                - gGlu * (Glud * P["E_max"] * P["EC_50"] / (e_den * e_den))
+                - gGLP * P["k_L"])
+    mech_FFA = gFFA * (-P["p_7"] - P["p_8"] * I + P["p_9"] * G)
+    dY = torch.stack([dX[1] + mech_G, dX[2] + mech_I, dX[3] + mech_Glu,
+                      dX[4] + dX[7] + mech_GLP, dX[5], dX[6] + mech_FFA])
+
+    # per-sample cotangent rows of the EFFECTIVE parameters
+    terms = {
+        "a_GI": gI * Pi * Gd,
+        "k_I": -(gI * (I - P["I_b"])),
+        "rho": gI * P["a_GI"] * Gd * GLP1,
+        "G_b": -(gI * Pi * P["a_GI"]),
+        "I_b": gI * P["k_I"] + 0.01 * gG,
+        "E_max": -(gGlu * Glud * GLP1 / e_den),
+        "EC_50": gGlu * Glud * P["E_max"] * GLP1 / (e_den * e_den),
+        "Glu_b": gGlu * glp1_eff - 0.005 * gG,
+        "V_max": gGLP * G / km_den,
+        "K_m": -(gGLP * P["V_max"] * G / (km_den * km_den)),
+        "k_L": -(gGLP * GLP1),
+        "k_GE0": -(gG * G),
+        "p_7": -(gFFA * FFA),
+        "p_8": -(gFFA * I * FFA),
+        "p_9": gFFA * G * FFA,
+    }
+    for name, term in terms.items():
+        dp[PARAM_ORDER.index(name)] += term
+    return dY
+
+
+def _bwd_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+               substeps: int, ctx_param_idx: Sequence[int] = (),
+               ctx_param_mode: str = "mul"):
+    """The backward kernel's function in torch ops, on its inputs.
+
+    traj / gbar (T, 6, B): the forward's trajectory and its cotangent.
+    Returns (ybar0 (B, 6), dflat (shaped as pw.flat), dp (17, B) per-sample
+    parameter cotangents, dctx (B, C) or None). Walks the intervals in
+    reverse; per interval one forward pass from traj[i] keeps every stage's
+    features and activations, then each substep's stages are transposed in
+    the order 4, 3, 2, 1 (pallas_rk4.py:606-647)."""
+    T, _, B = traj.shape
+    L = pw.n_layers
+    P = _effective_params(pvec, ctx_t, ctx_param_idx, ctx_param_mode)
+    fixed = _fixed_features(ctx_t, ctx_param_idx, pw.in_pad, B, traj)
+    feature_ctx = ctx_t is not None and not ctx_param_idx
+    acc = {"dw": [torch.zeros_like(w) for w in pw.ws],
+           "db": [torch.zeros_like(b) for b in pw.bs],
+           "dp": torch.zeros((N_PARAMS, B), dtype=traj.dtype, device=traj.device),
+           "dctx": torch.zeros_like(ctx_t) if feature_ctx else None}
+    ybar = gbar[T - 1]
+    for i in range(T - 2, -1, -1):
+        Y = traj[i]
+        saved = []
+        for j in range(substeps):
+            Y, h, stages = _substep(Y, ts_t[i], ts_t[i + 1], meal_t[i], meal_t[i + 1],
+                                    tvns_t[i], tvns_t[i + 1], j, substeps, P, fixed, pw)
+            saved.append((h, stages))
+        for h, stages in reversed(saved):
+            go = ybar
+            dk4 = (h / 6.0) * go
+            dY4 = _stage_bwd(dk4, *stages[3], P, pw, acc)
+            dk3 = (h / 3.0) * go + h * dY4
+            dY3 = _stage_bwd(dk3, *stages[2], P, pw, acc)
+            dk2 = (h / 3.0) * go + 0.5 * h * dY3
+            dY2 = _stage_bwd(dk2, *stages[1], P, pw, acc)
+            dk1 = (h / 6.0) * go + 0.5 * h * dY2
+            dY1 = _stage_bwd(dk1, *stages[0], P, pw, acc)
+            ybar = go + dY1 + dY2 + dY3 + dY4
+        ybar = ybar + gbar[i]
+
+    dp, dctx = acc["dp"], acc["dctx"]
+    if ctx_param_idx:  # closed-form fold of the effective-parameter cotangents
+        rows = []
+        for row, pidx in enumerate(ctx_param_idx):
+            if ctx_param_mode == "abs":
+                rows.append(dp[pidx].clone())
+                dp[pidx] = 0.0
+            else:  # P_eff = base * e^c
+                rows.append(dp[pidx] * P[PARAM_ORDER[pidx]])
+                dp[pidx] = dp[pidx] * torch.exp(ctx_t[row])
+        dctx = torch.stack(rows)
+    dflat = torch.cat([w.reshape(-1) for w in acc["dw"]] + acc["db"])
+    return ybar.t(), dflat, dp, None if dctx is None else dctx.t()
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel: build, bind, launch
+# CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
 def _find_nvcc() -> str:
@@ -201,36 +355,57 @@ def _find_nvcc() -> str:
         if c and os.path.isfile(c):
             return c
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-                       "the fused RK4 kernel cannot be built")
+                       "the fused RK4 kernels cannot be built")
 
 
-def build_library() -> Tuple[Path, str]:
-    """Compile csrc/fused_rk4_fwd.cu into `hybrid_ode_torch/build/` unless a
-    build of this exact source is there. Returns (path, nvcc output)."""
-    src = _SOURCE.read_bytes()
-    so = _BUILD_DIR / f"libfused_rk4_fwd_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    log = so.with_suffix(".log")
-    if so.exists():
-        return so, log.read_text() if log.exists() else ""
+def _sources() -> List[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def build_library() -> Dict[str, Tuple[Path, str]]:
+    """Compile every csrc/*.cu into its own library in `hybrid_ode_torch/build/`
+    unless a build of these exact sources is there; the nvcc runs start
+    together. Returns {source stem: (path, nvcc output)}."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    tag = h.hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so, proc.stdout + proc.stderr
+    procs = {}
+    for src in _sources():
+        so = _BUILD_DIR / f"lib{src.stem}_{tag}.so"
+        if not so.exists():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs[src.stem] = (so, tmp, subprocess.Popen(
+                [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for stem, (so, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem}.cu ({proc.returncode}):\n{out}")
+        so.with_suffix(".log").write_text(out)
+        os.replace(tmp, so)
+    built = {}
+    for src in _sources():
+        so = _BUILD_DIR / f"lib{src.stem}_{tag}.so"
+        log = so.with_suffix(".log")
+        built[src.stem] = (so, log.read_text() if log.exists() else "")
+    return built
 
 
 @functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    so, _ = build_library()
-    lib = ctypes.CDLL(str(so))
+def _libraries() -> Dict[str, ctypes.CDLL]:
+    libs = {stem: ctypes.CDLL(str(so)) for stem, (so, _) in build_library().items()}
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_rk4_fwd.argtypes = [p] * 9 + [i] * 9 + [p]
-    lib.fused_rk4_fwd.restype = i
-    return lib
+    fwd = libs["fused_rk4_fwd"].fused_rk4_fwd
+    fwd.argtypes = [p] * 9 + [i] * 9 + [p]
+    fwd.restype = i
+    bwd_lib = libs["fused_rk4_bwd"]
+    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    bwd_lib.fused_rk4_bwd_grid.restype = i
+    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 11 + [p]
+    bwd_lib.fused_rk4_bwd.restype = i
+    return libs
 
 
 def _check(name: str, x: torch.Tensor, shape, dtype=torch.float32) -> None:
@@ -244,20 +419,14 @@ def _check(name: str, x: torch.Tensor, shape, dtype=torch.float32) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
-              substeps: int, ctx_param_idx: Sequence[int] = (),
-              ctx_param_mode: str = "mul") -> torch.Tensor:
-    """Launch the CUDA kernel on the kernel's inputs: (T, 6, B)."""
-    global fused_rk4_fwd_launches
-    B = y0.shape[0]
-    T = ts_t.shape[0]
+def _check_common(T, B, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec, ctx_param_idx):
+    """Shared argument checks of both launchers; returns (C, n_cp)."""
     C = 0 if ctx_t is None else ctx_t.shape[0]
-    H, L = pw.hidden, pw.n_layers
-    _check("y0", y0, (B, 6))
     for name, x in (("ts", ts_t), ("meal", meal_t), ("tvns", tvns_t)):
         _check(name, x, (T, B))
     if ctx_t is not None:
         _check("context", ctx_t, (C, B))
+    H, L = pw.hidden, pw.n_layers
     _check("weights", pw.flat, (pw.in_pad * H + (L - 1) * H * H + H * N_OUT + L * H + N_OUT,))
     _check("pvec", pvec, (32,))
     n_cp = len(ctx_param_idx)
@@ -265,18 +434,37 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
         raise ValueError(f"{n_cp} context parameters but {C} context rows")
     if not n_cp and pw.in_pad < N_FEATURES + C:
         raise ValueError(f"layer 0 takes {pw.in_pad} inputs, fewer than {N_FEATURES + C}")
+    return C, n_cp
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _cidx(ctx_param_idx, dev):
+    return (torch.tensor(list(ctx_param_idx), dtype=torch.int32, device=dev)
+            if ctx_param_idx else None)
+
+
+def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+              substeps: int, ctx_param_idx: Sequence[int] = (),
+              ctx_param_mode: str = "mul") -> torch.Tensor:
+    """Launch the forward kernel on its inputs: (T, 6, B)."""
+    global fused_rk4_fwd_launches
+    B = y0.shape[0]
+    T = ts_t.shape[0]
+    _check("y0", y0, (B, 6))
+    C, n_cp = _check_common(T, B, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, ctx_param_idx)
     dev = y0.device
-    cidx = (torch.tensor(list(ctx_param_idx), dtype=torch.int32, device=dev)
-            if n_cp else None)
+    cidx = _cidx(ctx_param_idx, dev)
     out = torch.empty((T, 6, B), dtype=torch.float32, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    lib = _library()
+    lib = _libraries()["fused_rk4_fwd"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_rk4_fwd(
-            ptr(y0), ptr(ts_t), ptr(meal_t), ptr(tvns_t), ptr(ctx_t), ptr(pw.flat),
-            ptr(pvec), ptr(cidx), ptr(out), B, T, C, pw.in_pad, H, L, substeps,
-            n_cp, int(ctx_param_mode == "abs"), stream)
+            _ptr(y0), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t), _ptr(pw.flat),
+            _ptr(pvec), _ptr(cidx), _ptr(out), B, T, C, pw.in_pad, pw.hidden, pw.n_layers,
+            substeps, n_cp, int(ctx_param_mode == "abs"), stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_fwd launch failed: cudaError {err}")
     fused_rk4_fwd_launches += 1
@@ -286,7 +474,7 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
 def fused_rk4_fwd(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                   substeps: int, ctx_param_idx: Sequence[int] = (),
                   ctx_param_mode: str = "mul") -> torch.Tensor:
-    """The kernel on CUDA tensors, its plain version on CPU tensors."""
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
     if y0.device.type == "cpu":
         return _fwd_plain(y0, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
                           ctx_param_idx, ctx_param_mode)
@@ -296,9 +484,91 @@ def fused_rk4_fwd(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                      ctx_param_idx, ctx_param_mode)
 
 
+def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+              substeps: int, ctx_param_idx: Sequence[int] = (),
+              ctx_param_mode: str = "mul"):
+    """Launch the backward kernel; returns what `_bwd_plain` returns.
+
+    Each block accumulates the weight cotangents of the samples it walks
+    into its own slice of `partials`; a second kernel sums the slices in
+    block order, so the result does not depend on scheduling."""
+    global fused_rk4_bwd_launches
+    T, _, B = traj.shape
+    _check("traj", traj, (T, 6, B))
+    _check("gbar", gbar, (T, 6, B))
+    C, n_cp = _check_common(T, B, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, ctx_param_idx)
+    dev = traj.device
+    lib = _libraries()["fused_rk4_bwd"]
+    H, L, in_pad = pw.hidden, pw.n_layers, pw.in_pad
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.fused_rk4_bwd_grid(B, C, in_pad, H, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd_grid failed: cudaError {err}")
+    n_w = pw.flat.numel()
+    stage = (in_pad + L * H) * 32  # floats of one stage's saved features + activations
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    ybar0, dp, dflat = empty((B, 6)), empty((N_PARAMS, B)), empty((n_w,))
+    dctx = empty((B, C)) if C else None
+    partials = empty((grid.value, n_w))
+    scratch = empty((grid.value, 4 * substeps * stage))
+    cidx = _cidx(ctx_param_idx, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_rk4_bwd(
+            _ptr(traj), _ptr(gbar), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t),
+            _ptr(pw.flat), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dctx),
+            _ptr(dflat), _ptr(partials), _ptr(scratch), B, T, C, in_pad, H, L, substeps,
+            n_cp, int(ctx_param_mode == "abs"), grid.value, n_w, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd launch failed: cudaError {err}")
+    fused_rk4_bwd_launches += 1
+    return ybar0, dflat, dp, dctx
+
+
+def fused_rk4_bwd(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+                  substeps: int, ctx_param_idx: Sequence[int] = (),
+                  ctx_param_mode: str = "mul"):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    if traj.device.type == "cpu":
+        return _bwd_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
+                          ctx_param_idx, ctx_param_mode)
+    if traj.device.type != "cuda":
+        raise ValueError(f"fused_rk4_bwd runs on CUDA or CPU tensors, got {traj.device}")
+    return _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
+                     ctx_param_idx, ctx_param_mode)
+
+
 # ---------------------------------------------------------------------------
-# Public API
+# Differentiable public API
 # ---------------------------------------------------------------------------
+
+class FusedRK4(torch.autograd.Function):
+    """Fused trajectory (B, T, 6) with the hand adjoint as its backward
+    (the JAX package's `_make_fused_rk4` custom VJP, pallas_rk4.py:1016)."""
+
+    @staticmethod
+    def forward(ctx, y0, ts_t, meal_t, tvns_t, ctx_t, flat, pvec, layout, substeps,
+                ctx_param_idx, ctx_param_mode):
+        pw = _unflatten(flat, *layout)
+        traj = fused_rk4_fwd(y0, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
+                             ctx_param_idx, ctx_param_mode)
+        ctx.save_for_backward(traj, ts_t, meal_t, tvns_t, ctx_t, flat, pvec)
+        ctx.static = (layout, substeps, ctx_param_idx, ctx_param_mode)
+        return traj.permute(2, 0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        traj, ts_t, meal_t, tvns_t, ctx_t, flat, pvec = ctx.saved_tensors
+        layout, substeps, ctx_param_idx, ctx_param_mode = ctx.static
+        gbar = g.to(torch.float32).permute(1, 2, 0).contiguous()
+        ybar0, dflat, dp, dctx = fused_rk4_bwd(
+            traj, gbar, ts_t, meal_t, tvns_t, ctx_t, _unflatten(flat, *layout), pvec,
+            substeps, ctx_param_idx, ctx_param_mode)
+        dpvec = F.pad(dp.sum(1), (0, 32 - N_PARAMS))  # per-sample rows -> (32,)
+        dctx_t = None if dctx is None else dctx.t()
+        return ybar0, None, None, None, dctx_t, dflat, dpvec, None, None, None, None
+
 
 def pack(y0, ts, meal, tvns, ode_params, nn_params, n_layers: int = 4,
          context: Optional[torch.Tensor] = None):
@@ -307,7 +577,7 @@ def pack(y0, ts, meal, tvns, ode_params, nn_params, n_layers: int = 4,
             _pack_weights(nn_params, n_layers), _pack_params(ode_params))
 
 
-def fused_rk4_trajectory(
+def fused_rk4_hybrid(
     y0: torch.Tensor,                 # (B, 6) states
     ts: torch.Tensor,                 # (B, T) per-sample time grids (hours)
     meal: torch.Tensor,               # (B, T) meal signal on the grid
@@ -321,7 +591,9 @@ def fused_rk4_trajectory(
     mlp_dtype: str = "f32",
     ctx_param_mode: str = "mul",
 ) -> torch.Tensor:
-    """Integrate the hybrid field with fused RK4 (forward only); (B, T, 6).
+    """Differentiable fused-RK4 trajectory (B, T, 6): forward kernel, hand
+    adjoint kernel as its backward. Gradients reach y0, context, ode_params
+    and nn_params; ts, meal and tvns are data and get none.
 
     Equivalent to `odeint(hybrid_field, ..., solver='rk4', substeps=s)` with
     linear control interpolation. `context_param_idx` (PARAM_ORDER indices)
@@ -342,26 +614,14 @@ def fused_rk4_trajectory(
             nn_params["w0"].shape[0] != N_FEATURES + context.shape[-1]:
         raise ValueError(f"layer 0 takes {nn_params['w0'].shape[0]} inputs, not "
                          f"{N_FEATURES} + {context.shape[-1]} context features")
-    args = pack(y0, ts, meal, tvns, ode_params, nn_params, n_layers, context)
-    out = fused_rk4_fwd(*args, substeps, tuple(context_param_idx), ctx_param_mode)
-    return out.permute(2, 0, 1).contiguous()
+    y0_k, ts_t, meal_t, tvns_t, ctx_t, pw, pvec = pack(y0, ts, meal, tvns, ode_params,
+                                                       nn_params, n_layers, context)
+    return FusedRK4.apply(y0_k, ts_t, meal_t, tvns_t, ctx_t, pw.flat, pvec,
+                          (pw.in_pad, pw.hidden, pw.n_layers), substeps,
+                          tuple(context_param_idx), ctx_param_mode)
 
 
-def fused_rk4_hybrid(y0, ts, meal, tvns, ode_params, nn_params, substeps: int = 4,
-                     n_layers: int = 4, context=None, context_param_idx: tuple = (),
-                     mlp_dtype: str = "f32", ctx_param_mode: str = "mul") -> torch.Tensor:
-    """Forward-only form of the differentiable fused trajectory.
-
-    The backward kernel (`_bwd_kernel_hand`) is not ported yet (ROADMAP,
-    training slice), so this raises when a gradient would be needed."""
-    tensors = [y0, ts, meal, tvns, context, *ode_params.values(), *nn_params.values()]
-    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            "fused_rk4_hybrid is forward-only: an input requires grad, and the "
-            "backward kernel is not ported yet (ROADMAP, training slice); run "
-            "under torch.no_grad() or use the scan path (use_pallas=False)")
-    return fused_rk4_trajectory(y0, ts, meal, tvns, ode_params, nn_params,
-                                substeps=substeps, n_layers=n_layers, context=context,
-                                context_param_idx=context_param_idx,
-                                mlp_dtype=mlp_dtype, ctx_param_mode=ctx_param_mode)
+def fused_rk4_trajectory(*args, **kwargs) -> torch.Tensor:
+    """`fused_rk4_hybrid` without autograd (forward kernel only); (B, T, 6)."""
+    with torch.no_grad():
+        return fused_rk4_hybrid(*args, **kwargs)

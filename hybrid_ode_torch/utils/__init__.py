@@ -1,1 +1,1 @@
-"""Checkpoint reading, parameter conversion, devices."""
+"""Checkpoint reading and writing, parameter conversion, devices, config, logging."""

@@ -1,4 +1,4 @@
-"""Reader for the JAX package's checkpoint format.
+"""Reader and writer of the JAX package's checkpoint format.
 
 A checkpoint is a directory:
 
@@ -9,15 +9,58 @@ A checkpoint is a directory:
 (`hybrid_ode_tpu/utils/checkpoint.py`). The tree is rebuilt from the JSON
 spec only, as numpy arrays; nothing is ever unpickled. Tensors are made
 from the result by `hybrid_ode_torch.utils.convert.params_from_numpy`.
+`save_checkpoint` writes the same two files, leaves numbered in the order
+the JSON spec walks the tree (dict keys sorted, as jax flattens them), so
+params and metadata cross-load both ways. The port's optimizer state is
+{"count", "mu", "nu"} (`hybrid_ode_torch/train/loop.py`), not optax's
+state tree: it resumes within the port only.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def _default_json(o):
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"not JSON serialisable: {type(o)}")
+
+
+def _build_spec(tree: Any, leaves: list) -> Any:
+    """JSON spec of `tree`, appending its leaves (as numpy) in spec order."""
+    if tree is None:
+        return {"kind": "none"}
+    if isinstance(tree, dict):
+        return {"kind": "dict", "items": [[k, _build_spec(tree[k], leaves)] for k in sorted(tree)]}
+    if isinstance(tree, (tuple, list)):
+        return {"kind": "tuple" if isinstance(tree, tuple) else "list",
+                "items": [_build_spec(c, leaves) for c in tree]}
+    leaves.append(tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
+                  else np.asarray(tree))
+    return {"kind": "leaf", "index": len(leaves) - 1}
+
+
+def save_checkpoint(path: str, state: Any, metadata: Optional[Dict[str, Any]] = None) -> None:
+    """Save a tree of tensors / arrays (dicts, tuples, lists) plus JSON-able
+    metadata in the JAX package's format."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    leaves: list = []
+    spec = _build_spec(state, leaves)
+    np.savez(path / "leaves.npz", **{f"leaf_{i:04d}": l for i, l in enumerate(leaves)})
+    with open(path / "structure.json", "w") as f:
+        json.dump({"spec": spec, "n_leaves": len(leaves), "metadata": metadata or {}},
+                  f, default=_default_json)
 
 
 def _rebuild_from_spec(spec: Any, leaves) -> Any:

@@ -159,11 +159,11 @@ def test_fused_options_not_ported_or_invalid_raise():
         tfused.fused_rk4_trajectory(*args, n_layers=2, ctx_param_mode="add")
     with pytest.raises(ValueError, match="layers"):
         tfused.fused_rk4_trajectory(*args, n_layers=3)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tfused.fused_rk4_hybrid(*args, n_layers=2, mlp_dtype="bf16")
     y0g = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tfused.fused_rk4_hybrid(y0g, *args[1:], n_layers=2)
-    with torch.no_grad():
-        tfused.fused_rk4_hybrid(y0g, *args[1:], n_layers=2)
+    assert tfused.fused_rk4_hybrid(y0g, *args[1:], n_layers=2).grad_fn is not None
+    assert tfused.fused_rk4_trajectory(y0g, *args[1:], n_layers=2).grad_fn is None
 
 
 def test_cuda_launcher_rejects_cpu_tensors():

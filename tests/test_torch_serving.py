@@ -156,10 +156,18 @@ def test_main_writes_results(tmp_path, capsys):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """No JAX, JAX package or pandas anywhere; PyYAML only inside the
+    functions that read or write a YAML file (the card has no PyYAML)."""
     files = sorted((ROOT / "hybrid_ode_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    lazy_yaml = 0
     for f in files:
-        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+        tree = ast.parse(f.read_text(), str(f))
+        in_function = set()
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                in_function.update(id(n) for n in ast.walk(fn) if n is not fn)
+        for node in ast.walk(tree):
             names = []
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -169,4 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 names = [getattr(a, "value", "") for a in node.args[:1]]
             for n in names:
                 root = str(n).split(".")[0]
-                assert root not in ("jax", "jaxlib", "hybrid_ode_tpu", "pandas", "yaml"), (f, n)
+                assert root not in ("jax", "jaxlib", "hybrid_ode_tpu", "pandas"), (f, n)
+                if root == "yaml":
+                    assert id(node) in in_function, (f, "module-level yaml import")
+                    lazy_yaml += 1
+    assert lazy_yaml == 2  # utils/config.py: load_config, save_config
