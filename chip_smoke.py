@@ -5,8 +5,9 @@
 Phases, each printing a line of its own; any failure exits non-zero before
 the last line:
   1. device   - require CUDA, print the card and its power limit, TF32 off
-  2. build    - compile csrc/fused_rk4_fwd.cu and csrc/fused_rk4_bwd.cu
-                with nvcc (sm_90a), both at once; ptxas registers / spills
+  2. build    - compile csrc/fused_rk4_fwd.cu, csrc/fused_rk4_bwd.cu and
+                csrc/fused_rk4_bwd_vjp.cu with nvcc (sm_90a), all at once;
+                ptxas registers / spills of each
   3. kernel   - the fused RK4 forward kernel against its plain PyTorch
                 version on the card: the accuracy checkpoint at full width on
                 a cohort of 8192 windows (T=61, substeps=4, H=128, 16 context
@@ -21,6 +22,22 @@ the last line:
                 limit 1e-5 on the small cases; 1e-4 at full width, where a
                 leaf that misses it passes only if the kernel is no farther
                 from an f64 run of the plain version than the f32 plain is
+  3c. vjp     - the second-derivation adjoint kernel ('recompute' and
+                'chained') against its plain version (transposes from torch
+                autograd) on the same inputs and with 3b's limits; on the
+                small cases 'hand' against 'recompute' to 1e-5 as well. The
+                probes on the full-width and the 'mul' case: probe_yw's
+                ybar0, dW, db and probe_y's ybar0 equal 'chained''s, every
+                output a probe leaves out is exactly 0; 'recompute' twice on
+                the same inputs is bitwise equal
+  3d. bf16    - mlp_dtype='bf16': the three kernels against their plain
+                versions on the 'mul' small case (limit 1e-4), at full width
+                over the first 7 grid points (limit 1e-3) and over all 61
+                (limit 0.15, and the forward no farther from its plain
+                version than bf16 is from f32: two bf16 runs that sum in
+                another order put operands on the other side of a rounding
+                edge, 2^-8 of the operand each time, and 240 RK4 steps
+                compound that); the distance of the bf16 forward from f32
   4. main     - the serving path with every launch count at 0: evaluate the
                 checkpoint (use_pallas) on the seed-42 test split against the
                 JAX package's CPU metrics, then simulate the 8192 cohort with
@@ -31,13 +48,30 @@ the last line:
                 have launched >= 3 times, every loss be finite, final_model
                 reload, and the first step's loss and gradient norm match the
                 JAX package's CPU values to 1e-4
+  4c. identify - test-time identification with every launch count at 0:
+                identify_context for ID_STEPS steps on the seed-42 test split
+                with checkpoints/accuracy_benchmark_r2 (use_pallas,
+                context_mode='params', H=128). The forward and the hand
+                adjoint kernel must have launched >= ID_STEPS times, the
+                mean misfit must not be above the encoder's, and both
+                misfits match the JAX package's CPU values to 1e-4. Then the
+                same gradient through bwd_impl='recompute' and 'chained':
+                the new kernel must have launched and its dctx agree with
+                'hand''s to 1e-4. Then, on the card as well, identify_params
+                (scan solver, 5 steps: no window's misfit above its start's)
+                and amortize_encoder on the dataset's 10 windows (finite
+                losses, an encoder that encodes)
   5. timing   - CUDA events, median of 20: forward and backward kernels at
                 the cohort shape, one train step (fwd kernel + bwd kernel +
                 loss + Adam) at the cohort shape and at bench.py's train
                 shape (B=8192, T=61, H=64, no context); plain versions once;
-                then one cohort train step under torch.profiler: device time
-                per kernel and the device's busy share of the step
-Then one JSON line with both kernels, the card's name and power limit, and
+                'recompute', 'chained' and the six probes with the
+                decomposition of the adjoint they give; the bf16 forward and
+                hand adjoint; identify_context per step at the test split's
+                and the cohort's size; then one cohort train step under
+                torch.profiler: device time per kernel and the device's busy
+                share of the step
+Then one JSON line with the three kernels, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -53,12 +87,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from hybrid_ode_torch.data.dataset import create_data_arrays, split_dataset
+from hybrid_ode_torch.data.dataset import (
+    batch_iterator,
+    batch_to_tensors,
+    create_data_arrays,
+    split_dataset,
+)
 from hybrid_ode_torch.dynamics.controls import Controls
 from hybrid_ode_torch.evals.evaluate import evaluate_checkpoint
 from hybrid_ode_torch.models.hybrid import (
     batched_forward,
     config_from_dict,
+    amortize_encoder,
+    encode_context,
+    forward_with_param_deltas,
+    identify_context,
+    identify_params,
     init_hybrid_params,
     with_context,
 )
@@ -69,6 +113,7 @@ from hybrid_ode_torch.utils.convert import params_from_numpy
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "checkpoints" / "accuracy_benchmark" / "best_model"
+CKPT_R2 = ROOT / "checkpoints" / "accuracy_benchmark_r2" / "best_model"
 DATA = ROOT / "data" / "4gi_dataset.csv"
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
@@ -79,11 +124,22 @@ REF_RTOL = 1e-4
 # with use_pallas, its params, the seed-42 split's first shuffled batch):
 # loss and global gradient norm (tests/test_torch_training.py recomputes them)
 REF_TRAIN_LOSS, REF_GRAD_NORM = 0.133601293, 2.02965832
+# JAX package, identify_context on the CPU (the r2 checkpoint, ID_STEPS steps,
+# the seed-42 test split): mean masked data misfit over the first 12 points at
+# the encoder's codes and at the identified ones
+# (tests/test_torch_identify.py recomputes them)
+ID_STEPS = 30
+REF_ID_MISFIT_ENCODER, REF_ID_MISFIT_IDENTIFIED = 0.0514110886, 0.0509036556
 RTOL = ATOL = 2e-4
 COHORT = 8192          # bench.py's cohort size
 SUBSTEPS = 4
 BWD_B = 1024           # windows of the cohort for the adjoint's kernel-vs-plain check
 BWD_SMALL_RTOL, BWD_FULL_RTOL = 1e-5, 1e-4
+# mlp_dtype='bf16', kernel against plain version (_rel_err): small case, full
+# width over BF16_SHORT_T grid points, full width over all of them
+BF16_SMALL_RTOL, BF16_SHORT_RTOL, BF16_FULL_RTOL = 1e-4, 1e-3, 0.15
+BF16_SHORT_T = 7
+PROBES = ("probe_y", "probe_yw", "probe_y_mlp", "probe_y_mech", "probe_fwd1", "probe_fwd2")
 # NVIDIA H100 SXM data sheet, 700 W: f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -200,7 +256,8 @@ def bwd_leaves(out, pw):
     17 parameter gradients summed over the batch (in f64), dctx."""
     ybar0, dflat, dp, dctx = out
     v = fused_rk4._unflatten(dflat, pw.in_pad, pw.hidden, pw.n_layers)
-    leaves = {"ybar0": ybar0, "dparams": dp.double().sum(1)}
+    n_par = fused_rk4.N_PARAMS  # 'recompute' returns the (32,) row already summed
+    leaves = {"ybar0": ybar0, "dparams": dp[:n_par].double() if dp.ndim == 1 else dp.double().sum(1)}
     for i in range(pw.n_layers + 1):
         leaves[f"dw{i}"], leaves[f"db{i}"] = v.ws[i], v.bs[i]
     if dctx is not None:
@@ -208,35 +265,46 @@ def bwd_leaves(out, pw):
     return leaves
 
 
-def bwd_inputs(packed, T, substeps, idx=(), mode="mul"):
+def bwd_inputs(packed, T, substeps, idx=(), mode="mul", mlp_dtype="f32"):
     """Forward-kernel trajectory and a numpy-seeded cotangent for `packed`."""
     B = packed[0].shape[0]
     with torch.no_grad():
-        traj = fused_rk4.fused_rk4_fwd(*packed, substeps, idx, mode)
+        traj = fused_rk4.fused_rk4_fwd(*packed, substeps, idx, mode, mlp_dtype)
     gbar = np.random.default_rng(0).normal(size=(T, 6, B)).astype(np.float32)
     return traj, torch.as_tensor(gbar, device=traj.device)
 
 
-def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False):
-    """Adjoint kernel vs plain version; returns (max abs error, plain seconds)."""
-    traj, gbar = bwd_inputs(packed, T, substeps, idx, mode)
-    args = (traj, gbar, *packed[1:], substeps, idx, mode)
+def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False, impl="hand",
+                mlp_dtype="f32", limit=None, f64=None):
+    """An adjoint kernel vs its plain version on the forward kernel's
+    trajectory; returns (max abs error, plain seconds, kernel leaves, f64
+    leaves). `impl` 'hand' is fused_rk4_bwd, anything else fused_rk4_bwd_vjp.
+    With `full`, a leaf that misses the limit passes if the kernel is no
+    farther from the f64 plain run (`f64`, computed here when not given) than
+    the f32 plain is."""
+    traj, gbar = bwd_inputs(packed, T, substeps, idx, mode, mlp_dtype)
+    args = (traj, gbar, *packed[1:], substeps, idx, mode, mlp_dtype)
+    if impl == "hand":
+        kernel_fn, plain_fn = fused_rk4.fused_rk4_bwd, fused_rk4._bwd_plain
+    else:
+        kernel_fn = lambda *a: fused_rk4.fused_rk4_bwd_vjp(*a, impl)  # noqa: E731
+        plain_fn = lambda *a: fused_rk4._bwd_vjp_plain(*a, impl)  # noqa: E731
     with torch.no_grad():
-        kernel = bwd_leaves(fused_rk4.fused_rk4_bwd(*args), packed[5])
+        kernel = bwd_leaves(kernel_fn(*args), packed[5])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = bwd_leaves(fused_rk4._bwd_plain(*args), packed[5])
+        plain = bwd_leaves(plain_fn(*args), packed[5])
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        f64 = None
-        if full:
+        if full and f64 is None:
             d = lambda x: None if x is None else x.double()  # noqa: E731
             pw = packed[5]
             pw64 = fused_rk4._unflatten(pw.flat.double(), pw.in_pad, pw.hidden, pw.n_layers)
             f64 = bwd_leaves(fused_rk4._bwd_plain(
                 d(traj), d(gbar), *(d(x) for x in packed[1:5]), pw64, d(packed[6]), substeps,
                 idx, mode), pw)
-    limit = BWD_FULL_RTOL if full else BWD_SMALL_RTOL
+    if limit is None:
+        limit = BWD_FULL_RTOL if full else BWD_SMALL_RTOL
     max_abs, parts, bad = 0.0, [], []
     for name, k in kernel.items():
         if not torch.isfinite(k).all():
@@ -252,11 +320,59 @@ def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False):
         elif e > limit:
             bad.append(name)
         parts.append(part)
-    print(f"bwd kernel-vs-plain {label} (_rel_err limit {limit:g}): " + "; ".join(parts)
+    print(f"bwd '{impl}' {mlp_dtype} kernel-vs-plain {label} (_rel_err limit {limit:g}): "
+          + "; ".join(parts) + f" {'FAIL ' + ', '.join(bad) if bad else 'ok'}")
+    if bad:
+        fail(f"bwd '{impl}' {label}: kernel disagrees with its plain version ({', '.join(bad)})")
+    return max_abs, plain_s, kernel, f64
+
+
+def compare_leaves(a, b, label, limit, names=None):
+    """Two sets of adjoint leaves against each other (_rel_err of b on a)."""
+    errs = {n: rel_err(a[n], b[n]) for n in (names or a)}
+    bad = [n for n, e in errs.items() if not e <= limit]
+    print(f"{label} (_rel_err limit {limit:g}): " + "; ".join(f"{n} {e:.2e}" for n, e in errs.items())
           + f" {'FAIL ' + ', '.join(bad) if bad else 'ok'}")
     if bad:
-        fail(f"bwd {label}: kernel disagrees with its plain version ({', '.join(bad)})")
-    return max_abs, plain_s
+        fail(f"{label}: {', '.join(bad)} disagree")
+
+
+def check_probes(packed, T, substeps, label, idx, mode, chained):
+    """Every probe of the second-derivation kernel on these inputs: what it
+    computes equals 'chained', what it leaves out is exactly 0."""
+    traj, gbar = bwd_inputs(packed, T, substeps, idx, mode)
+    for probe in PROBES:
+        with torch.no_grad():
+            out = bwd_leaves(fused_rk4.fused_rk4_bwd_vjp(traj, gbar, *packed[1:], substeps, idx,
+                                                         mode, "f32", probe), packed[5])
+        torch.cuda.synchronize()
+        same = {"probe_y": ["ybar0"],
+                "probe_yw": ["ybar0"] + [n for n in out if n[:2] in ("dw", "db")]}.get(probe, [])
+        zero = [n for n in out if n != "ybar0" and n not in same]
+        nonzero = [n for n in zero if float(out[n].abs().max()) != 0.0]
+        if nonzero or not torch.isfinite(out["ybar0"]).all():
+            fail(f"{probe} {label}: outputs it leaves out are not 0: {nonzero}")
+        if same:
+            compare_leaves(chained, out, f"{probe} vs 'chained' {label}; {len(zero)} outputs "
+                           "exactly 0", 1e-6, same)
+        else:
+            print(f"{probe} {label}: ybar0 finite, {len(zero)} outputs exactly 0 ok")
+
+
+def compare_bf16(packed, T, substeps, label, idx, mode, limit):
+    """mlp_dtype='bf16': each of the three kernels vs its plain version;
+    returns the forward's (kernel, error to plain)."""
+    with torch.no_grad():
+        k = fused_rk4.fused_rk4_fwd(*packed, substeps, idx, mode, "bf16")
+        torch.cuda.synchronize()
+        e = rel_err(fused_rk4._fwd_plain(*packed, substeps, idx, mode, "bf16"), k)
+    print(f"fwd bf16 kernel-vs-plain {label} (_rel_err limit {limit:g}): {e:.2e} "
+          f"{'ok' if e <= limit else 'FAIL'}")
+    if not e <= limit:
+        fail(f"bf16 forward {label}: kernel disagrees with its plain version")
+    for impl in ("hand", "recompute", "chained"):
+        compare_bwd(packed, T, substeps, label, idx, mode, impl=impl, mlp_dtype="bf16", limit=limit)
+    return k, e
 
 
 def kernel_ops(nn, n_layers, hidden, B, T, substeps, n_ctx_feat=0):
@@ -272,6 +388,21 @@ def kernel_ops(nn, n_layers, hidden, B, T, substeps, n_ctx_feat=0):
     bwd = fwd + steps * (4 * (4 * macs + outs + hidden_outs + MECH_T_OPS_PER_STAGE + n_ctx_feat)
                          + RK_T_OPS_PER_STEP)
     return fwd, bwd
+
+
+def id_misfit(params, batch, config, ctx, k):
+    """Mean over windows of the masked, weighted data misfit over the first
+    k points, rolled out with the codes `ctx` (identify_context's objective
+    without its trust region)."""
+    ts_k = batch["time_points"][:, :k]
+    sig = {n: v[:, :k] for n, v in batch["external_inputs"].items()}
+    with torch.no_grad():
+        preds = batched_forward(params, batch["initial_state"], ts_k,
+                                Controls(ts=ts_k, signals=dict(sig, context=ctx)), config)
+    m = batch["mask"][:, :k]
+    se = (preds - batch["observations"][:, :k]) ** 2 * batch["loss_weights"] * m[..., None]
+    per_window = se.sum((1, 2)) / torch.clamp(m.sum(1) * se.shape[-1], min=1.0)
+    return float(per_window.mean())
 
 
 def bound(ops, nbytes):
@@ -383,12 +514,54 @@ def main():
     head = slice(0, BWD_B)
     packed_head = (packed[0][head].contiguous(),
                    *(x[:, head].contiguous() for x in packed[1:5]), packed[5], packed[6])
-    bwd_abs, bwd_plain_s = compare_bwd(packed_head, T, SUBSTEPS,
-                                       f"full width (first {BWD_B} of the cohort)", full=True)
+    full_label = f"full width (first {BWD_B} of the cohort)"
+    bwd_abs, bwd_plain_s, _, f64 = compare_bwd(packed_head, T, SUBSTEPS, full_label, full=True)
     bwd_max_abs = {"full": bwd_abs}
+    hand_small = {}
     for name, (p, idx, m) in small.items():
-        bwd_max_abs[name], _ = compare_bwd(p, 13, 2, f"small {name}", idx, m)
+        bwd_max_abs[name], _, hand_small[name], _ = compare_bwd(p, 13, 2, f"small {name}", idx, m)
     report["bwd_max_abs_err"] = bwd_max_abs
+
+    # 3c. second-derivation adjoint kernel vs plain, vs 'hand', probes
+    vjp_max_abs, vjp_plain_s = {}, {}
+    for impl in ("recompute", "chained"):
+        vjp_max_abs[f"full_{impl}"], vjp_plain_s[impl], full_leaves, _ = compare_bwd(
+            packed_head, T, SUBSTEPS, full_label, full=True, impl=impl, f64=f64)
+        for name, (p, idx, m) in small.items():
+            vjp_max_abs[f"{name}_{impl}"], _, leaves, _ = compare_bwd(
+                p, 13, 2, f"small {name}", idx, m, impl=impl)
+            if impl == "recompute":
+                compare_leaves(hand_small[name], leaves, f"'hand' vs 'recompute' kernels small {name}",
+                               BWD_SMALL_RTOL)
+            elif name == "mul":
+                check_probes(p, 13, 2, "small mul", idx, m, leaves)
+    check_probes(packed_head, T, SUBSTEPS, "full width", (), "mul", full_leaves)
+    # 'recompute' reduces the parameter cotangents inside the block: order-fixed?
+    traj_head, gbar_head = bwd_inputs(packed_head, T, SUBSTEPS)
+    twice = [fused_rk4.fused_rk4_bwd_vjp(traj_head, gbar_head, *packed_head[1:], SUBSTEPS, (),
+                                         "mul", "f32", "recompute") for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*twice)):
+        fail("'recompute' gave different outputs on the same inputs")
+    print("'recompute' twice on the same full-width inputs: every output bitwise equal ok")
+    report["vjp_max_abs_err"] = vjp_max_abs
+
+    # 3d. mlp_dtype='bf16': the three kernels vs their plain versions
+    p, idx, m = small["mul"]
+    compare_bf16(p, 13, 2, "small mul", idx, m, BF16_SMALL_RTOL)
+    short = (packed_head[0], *(x[:BF16_SHORT_T].contiguous() for x in packed_head[1:4]),
+             *packed_head[4:])
+    compare_bf16(short, BF16_SHORT_T, SUBSTEPS, f"full width, {BF16_SHORT_T} grid points", (),
+                 "mul", BF16_SHORT_RTOL)
+    bf16_traj, bf16_err = compare_bf16(packed_head, T, SUBSTEPS, full_label, (), "mul",
+                                       BF16_FULL_RTOL)
+    bf16_dist = rel_err(full_kernel[:, :, head], bf16_traj)
+    print(f"bf16 forward vs f32 forward {full_label}: _rel_err {bf16_dist:.2e}, max abs "
+          f"{float((full_kernel[:, :, head] - bf16_traj).abs().max()):.3e}; the bf16 kernel is "
+          f"{bf16_err:.2e} from its plain version")
+    if not bf16_err <= bf16_dist:
+        fail("the bf16 forward kernel is farther from its plain version than bf16 is from f32")
+    report.update(bf16_fwd_kernel_vs_plain=bf16_err, bf16_fwd_vs_f32=bf16_dist)
 
     # 4. serving path, launch counts from 0
     fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
@@ -461,6 +634,94 @@ def main():
             fail(f"first train step {key} disagrees with the JAX reference")
     report.update(train_history=hist, train_launches=train_launches, train_s=train_s)
 
+    # 4c. test-time identification through the fused kernels, launch counts from 0
+    state2, meta2 = load_checkpoint(str(CKPT_R2))
+    params2 = params_from_numpy(state2["params"], device)
+    config2 = config_from_dict(meta2["config"])
+    if not (config2.use_pallas and config2.context_mode == "params"):
+        fail("the r2 checkpoint's config is not use_pallas with context_mode='params'")
+    id_batch = batch_to_tensors(next(batch_iterator(test_ds, len(test_ds), shuffle=False)), device)
+    k_id = config2.context_points
+    with torch.no_grad():
+        enc_ctx = encode_context(params2["enc"], id_batch["observations"],
+                                 id_batch["time_points"], k_id, config2.activation)
+    fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+    fused_rk4.fused_rk4_bwd_vjp_launches = 0
+    t0 = time.perf_counter()
+    id_ctx = identify_context(params2, id_batch, config2, steps=ID_STEPS)
+    torch.cuda.synchronize()
+    id_s = time.perf_counter() - t0
+    id_launches = [fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches]
+    misfits = {"encoder": id_misfit(params2, id_batch, config2, enc_ctx, k_id),
+               "identified": id_misfit(params2, id_batch, config2, id_ctx, k_id)}
+    print(f"main path (identification): identify_context {ID_STEPS} steps on {len(test_ds)} windows "
+          f"x {k_id} points in {id_s:.2f} s; mean misfit encoder {misfits['encoder']:.9f} -> "
+          f"identified {misfits['identified']:.9f}; fused_rk4_fwd launches={id_launches[0]} "
+          f"fused_rk4_bwd launches={id_launches[1]}")
+    if id_launches[0] < ID_STEPS or id_launches[1] < ID_STEPS:
+        fail("identification launched the forward or the hand adjoint kernel fewer than ID_STEPS times")
+    if not (torch.isfinite(id_ctx).all() and misfits["identified"] <= misfits["encoder"]):
+        fail("identification raised the mean misfit above the encoder's")
+    for key, ref in (("encoder", REF_ID_MISFIT_ENCODER), ("identified", REF_ID_MISFIT_IDENTIFIED)):
+        rel = abs(misfits[key] - ref) / ref
+        print(f"identification misfit {key}={misfits[key]:.9f} JAX-CPU reference={ref} "
+              f"rel_err={rel:.2e} (limit {REF_RTOL})")
+        if rel > REF_RTOL:
+            fail(f"identification misfit ({key}) disagrees with the JAX reference")
+    # the same gradient with respect to the codes through each adjoint kernel
+    idx2 = tuple(fused_rk4.PARAM_ORDER.index(n) for n in config2.context_params)
+    dctx = {}
+    for impl in ("hand", "recompute", "chained"):
+        c = enc_ctx.clone().requires_grad_(True)
+        pred = fused_rk4.fused_rk4_hybrid(
+            id_batch["initial_state"], id_batch["time_points"][:, :k_id],
+            id_batch["external_inputs"]["meal"][:, :k_id],
+            id_batch["external_inputs"]["tVNS"][:, :k_id], params2["ode"], params2["nn"],
+            substeps=config2.substeps, n_layers=config2.nn_layers, context=c,
+            context_param_idx=idx2, bwd_impl=impl)
+        (dctx[impl],) = torch.autograd.grad(
+            ((pred - id_batch["observations"][:, :k_id]) ** 2).sum(), c)
+    torch.cuda.synchronize()
+    id_launches.append(fused_rk4.fused_rk4_bwd_vjp_launches)
+    for impl in ("recompute", "chained"):
+        e = rel_err(dctx["hand"], dctx[impl])
+        print(f"identification gradient dctx '{impl}' vs 'hand': _rel_err {e:.2e} (limit 1e-4)")
+        if not e <= 1e-4:
+            fail(f"dctx of '{impl}' disagrees with 'hand'")
+    print(f"identification: fused_rk4_bwd_vjp launches={id_launches[2]}")
+    if id_launches[2] < 2:
+        fail("the second-derivation adjoint kernel did not launch on the identification path")
+    # the rest of the identification functions on the card: per-window
+    # parameter multipliers on top of the codes, and the amortised encoder
+    sig_k = {n: v[:, :k_id] for n, v in id_batch["external_inputs"].items()}
+    ctrl_k = Controls(ts=id_batch["time_points"][:, :k_id], signals=dict(sig_k, context=id_ctx))
+
+    def delta_misfit(deltas):
+        with torch.no_grad():
+            preds = forward_with_param_deltas(params2, deltas, id_batch["initial_state"],
+                                              ctrl_k.ts, ctrl_k, config2)
+        se = (preds - id_batch["observations"][:, :k_id]) ** 2 * id_batch["loss_weights"]
+        return (se * id_batch["mask"][:, :k_id, None]).sum((1, 2)) / (
+            id_batch["mask"][:, :k_id].sum(1) * 6).clamp(min=1.0)
+
+    deltas = identify_params(params2, id_batch, config2, context=id_ctx, steps=5, points=k_id)
+    before, after = delta_misfit(torch.zeros_like(deltas)), delta_misfit(deltas)
+    all_batch = batch_to_tensors(next(batch_iterator(ds, len(ds), shuffle=False)), device)
+    enc, info = amortize_encoder(params2, all_batch, config2, id_steps=5, epochs=20,
+                                 finetune_epochs=2, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        codes = encode_context(enc, all_batch["observations"], all_batch["time_points"], k_id)
+    torch.cuda.synchronize()
+    print(f"identification: identify_params 5 steps, per-window misfit {before.tolist()} -> "
+          f"{after.tolist()}; amortize_encoder on {len(ds)} windows: " + json.dumps(info))
+    if not (torch.isfinite(deltas).all() and (after <= before).all()):
+        fail("identify_params returned deltas with a higher misfit than zero deltas")
+    if not (np.isfinite(list(info.values())).all() and torch.isfinite(codes).all()
+            and codes.shape == (len(ds), len(config2.context_params)) and codes.is_cuda):
+        fail("amortize_encoder did not return finite losses and a working encoder on the card")
+    report.update(identify={"misfits": misfits, "launches": id_launches, "seconds": id_s,
+                            "amortize_info": info})
+
     # 5. timing
     with torch.no_grad():
         ms = time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS), 3, 20)
@@ -483,6 +744,59 @@ def main():
     print(f"timing ({smi}): bwd kernel {bwd_ms:.3f} ms at B={COHORT}; plain "
           f"{bwd_plain_s * 1e3:.3f} ms once at B={BWD_B}; bound {bwd_bound_ms:.3f} ms "
           f"({bwd_ops:.4e} FLOP at f32 peak; {bwd_bytes} B = {bwd_t_bytes:.4f} ms at HBM peak)")
+
+    # the second-derivation kernel, its probes and what they decompose
+    vjp_ms = {}
+    with torch.no_grad():
+        for impl in fused_rk4.VJP_IMPLS:
+            vjp_ms[impl] = time_ms(lambda: fused_rk4.fused_rk4_bwd_vjp(
+                traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "f32", impl), 2, 20)
+        bf16_ms = {
+            "fwd": time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS, (), "mul", "bf16"),
+                           2, 20),
+            "bwd": time_ms(lambda: fused_rk4.fused_rk4_bwd(
+                traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "bf16"), 2, 20)}
+    # 'recompute' runs one more forward pass per interval and returns the
+    # parameter cotangents as one (32,) row
+    vjp_bound = {"chained": bound(bwd_ops, bwd_bytes),
+                 "recompute": bound(bwd_ops + fwd_ops, bwd_bytes - 4 * (17 * COHORT - 32))}
+    print(f"timing ({smi}): second-derivation adjoint at B={COHORT}: "
+          + "; ".join(f"'{i}' {vjp_ms[i]:.3f} ms (bound {vjp_bound[i][0]:.3f} ms by "
+                      f"{vjp_bound[i][1]}, plain {vjp_plain_s[i] * 1e3:.3f} ms once at B={BWD_B})"
+                      for i in ("recompute", "chained"))
+          + "; probes: " + ", ".join(f"{i} {vjp_ms[i]:.3f} ms" for i in PROBES))
+    decomposition = {
+        "one forward pass (probe_fwd1)": vjp_ms["probe_fwd1"],
+        "a second forward pass (probe_fwd2 - probe_fwd1)": vjp_ms["probe_fwd2"] - vjp_ms["probe_fwd1"],
+        "state cotangent chain (probe_y - probe_fwd1)": vjp_ms["probe_y"] - vjp_ms["probe_fwd1"],
+        "weight cotangents (probe_yw - probe_y)": vjp_ms["probe_yw"] - vjp_ms["probe_y"],
+        "parameter and context cotangents (chained - probe_yw)":
+            vjp_ms["chained"] - vjp_ms["probe_yw"],
+    }
+    print(f"decomposition of the 'chained' adjoint ({smi}): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in decomposition.items())
+          + f"; the state chain with its forward pass, probe_y {vjp_ms['probe_y']:.3f} ms, is "
+          f"probe_y_mlp {vjp_ms['probe_y_mlp']:.3f} ms with the MLP alone and probe_y_mech "
+          f"{vjp_ms['probe_y_mech']:.3f} ms with the mechanistic drift alone")
+    print(f"timing ({smi}): mlp_dtype='bf16' at B={COHORT}: fwd kernel {bf16_ms['fwd']:.3f} ms "
+          f"(f32 {ms:.3f} ms), hand adjoint kernel {bf16_ms['bwd']:.3f} ms (f32 {bwd_ms:.3f} ms)")
+
+    # identify_context per step: the test split, and the cohort's windows with
+    # the r2 checkpoint (one step = forward kernel + hand adjoint + Adam on the codes)
+    def id_step_ms(b, steps):
+        identify_context(params2, b, config2, steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        identify_context(params2, b, config2, steps=steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    cohort_batch = dict(batch, external_inputs={"meal": sig["meal"], "tVNS": sig["tVNS"]},
+                        loss_weights=torch.as_tensor(ds.loss_weights, device=device))
+    id_ms = {"test_split": id_step_ms(id_batch, ID_STEPS), "cohort": id_step_ms(cohort_batch, 10)}
+    print(f"timing ({smi}): identify_context per step (host clock, {k_id} points, H=128, params "
+          f"mode): {id_ms['test_split']:.3f} ms at B={len(test_ds)}, {id_ms['cohort']:.3f} ms at "
+          f"B={COHORT}")
 
     lambda2 = cfg["training"]["lambda2"]
     train_batch = dict(batch, external_inputs={"meal": sig["meal"], "tVNS": sig["tVNS"]},
@@ -515,20 +829,33 @@ def main():
         {"name": "fused_rk4_fwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_fwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:253",
-         "launches": launches + train_launches[0], "max_abs_err": max(max_abs.values()),
+         "launches": launches + train_launches[0] + id_launches[0],
+         "max_abs_err": max(max_abs.values()),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None},
+         "library_ms": None, "ms_bf16": bf16_ms["fwd"]},
         {"name": "fused_rk4_bwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:414",
-         "launches": train_launches[1], "max_abs_err": max(bwd_max_abs.values()),
+         "launches": train_launches[1] + id_launches[1],
+         "max_abs_err": max(bwd_max_abs.values()),
          "ms": bwd_ms, "plain_ms": bwd_plain_s * 1e3, "plain_batch": BWD_B,
-         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None},
+         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,
+         "ms_bf16": bf16_ms["bwd"]},
+        {"name": "fused_rk4_bwd_vjp", "route": "cuda",
+         "source": "hybrid_ode_torch/csrc/fused_rk4_bwd_vjp.cu",
+         "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:692",
+         "launches": id_launches[2], "max_abs_err": max(vjp_max_abs.values()),
+         "ms": vjp_ms["recompute"], "plain_ms": vjp_plain_s["recompute"] * 1e3,
+         "plain_batch": BWD_B, "bound_ms": vjp_bound["recompute"][0],
+         "bound_by": vjp_bound["recompute"][1], "library_ms": None,
+         "ms_chained": vjp_ms["chained"], "plain_ms_chained": vjp_plain_s["chained"] * 1e3,
+         "bound_ms_chained": vjp_bound["chained"][0]},
     ]
     report.update(kernels=entries, flops={"fwd": fwd_ops, "bwd": bwd_ops},
                   bytes={"fwd": fwd_bytes, "bwd": bwd_bytes}, substeps=steps,
                   train_step_ms={"H128_C16": step_ms, "H64": step64_ms},
-                  train_step_bound_ms=train_bounds)
+                  train_step_bound_ms=train_bounds, vjp_ms=vjp_ms, bf16_ms=bf16_ms,
+                  decomposition_ms=decomposition, identify_step_ms=id_ms)
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1, default=float))
     print(json.dumps({"kernels": entries}))

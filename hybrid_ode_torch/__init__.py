@@ -5,13 +5,14 @@ mirrors the module of the same name there and is tested against it on the
 CPU (`tests/test_torch_*.py`). This package never imports JAX or
 `hybrid_ode_tpu`.
 
-Layering (bottom-up), serving and training paths so far:
+Layering (bottom-up), serving, training and identification paths so far:
   dynamics/   mechanistic 6-state field, MLP residual, piecewise-linear controls
   solvers/    fixed-grid RK4 / Euler
-  ops/        fused RK4 forward and adjoint: hand-written CUDA kernels (csrc/)
-              + plain torch versions, paired as a torch.autograd.Function
+  ops/        fused RK4 forward and two adjoints: hand-written CUDA kernels
+              (csrc/) + plain torch versions, paired as a
+              torch.autograd.Function
   models/     hybrid model composition, config, fused dispatch, context
-              encoder, hybrid_loss
+              encoder, test-time identification, hybrid_loss
   data/       CSV windowing (no pandas), splits, batching
   evals/      metrics and checkpoint evaluation
   train/      optimizer (clip + Adam + cosine), train_model, CLI

@@ -16,8 +16,9 @@
 // saves every stage's MLP input X and post-ReLU activations, then walks the
 // substeps backwards transposing stages 4, 3, 2, 1: the MLP transpose
 // (ReLU mask acts > 0) and the hand-derived mechanistic Jacobian-transpose.
-// The forward pass repeats fused_rk4_fwd.cu's arithmetic line for line, so
-// the states it rebuilds are the ones the forward took.
+// The forward pass is fused_rk4_fwd.cu's stage evaluation
+// (fused_rk4_common.cuh), so the states it rebuilds are the ones the forward
+// took.
 //
 // What bounds it on an H100: arithmetic. Per stage evaluation the MLP is
 // done three times (recompute, weight cotangent, input cotangent): at the
@@ -30,7 +31,7 @@
 //     output. Here blocks run in no order, so block g accumulates into its
 //     own slice partials[g] (the packed weight layout) with plain
 //     read-modify-writes: no other block touches it, so no atomics.
-//     `sum_partials` then adds the slices in block order, so gradients do
+//     `sum_rows` (fused_rk4_common.cuh) then adds the slices in block order, so gradients do
 //     not depend on scheduling. The read-modify-write happens once per
 //     stage (simple, about 217 KB each way per stage and block at H = 128);
 //     batching it per interval is left to a later version.
@@ -47,6 +48,11 @@
 //   * Each dense transpose is register-tiled like the forward (4 rows x 4
 //     samples per thread, float4 loads of weights and activations).
 //
+// mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): both
+// operands of every product, forward and transposed, are rounded to bf16 at
+// the load (`wpack` arrives rounded); sums, bias cotangents, masks and every
+// accumulator stay f32. The f32 instantiation is the code without it.
+//
 // Built with -fmad=false (hybrid_ode_torch/ops/fused_rk4.py): the matmul
 // loops use explicit fmaf; everything else rounds after each operation, as
 // the plain PyTorch version's tensor ops do, so the adjoint's recomputed
@@ -55,70 +61,16 @@
 // Interface: plain C functions taking device pointers and the stream, loaded
 // with ctypes (hybrid_ode_torch/ops/fused_rk4.py). They return cudaError_t.
 
-#include <cuda_runtime.h>
+#include "fused_rk4_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;       // samples per tile
-constexpr int SQ = TILE / 4;   // sample quads
-constexpr int NTHREADS = 256;  // threads per block
-constexpr int NP = 17;         // mechanistic parameters, PARAM_ORDER
-constexpr int NS = 6;          // states
-constexpr int NF = 9;          // features before the context: t, y(6), GLP1, tVNS
-constexpr int NOUT = 8;        // last layer's output rows (6 used, 2 zero pad)
-
-// PARAM_ORDER indices (hybrid_ode_torch/ops/fused_rk4.py)
-enum { A_GI, K_I, RHO, G_B, I_B, E_MAX, EC_50, GLU_B, V_MAX, K_M, K_L,
-       K_GE0, IGD_50, HILL_G, P_7, P_8, P_9 };
-
-// out[n][s] = act(sum_k W[k][n] * in[k][s] + bias[n]) for n < N, s < TILE,
-// also stored to save[n][s] when save is not null. As fused_rk4_fwd.cu.
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ bias,
-                                      const float* in, float* out, float* save,
-                                      int K, int N, bool relu) {
-  const int sq = threadIdx.x % SQ;
-  const int n4 = N / 4;
-  const float4* a4 = reinterpret_cast<const float4*>(in) + sq;
-  for (int rq = threadIdx.x / SQ; rq < n4; rq += NTHREADS / SQ) {
-    const float4* w4 = reinterpret_cast<const float4*>(W) + rq;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 w = __ldg(w4 + k * n4);
-      const float4 a = a4[k * SQ];
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
-    }
-    const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + rq);
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][j] + bv[i];
-        if (relu) v[j] = v[j] < 0.f ? 0.f : v[j];  // NaN propagates, as max(x, 0)
-      }
-      const float4 o = make_float4(v[0], v[1], v[2], v[3]);
-      const int idx = (4 * rq + i) * SQ + sq;
-      reinterpret_cast<float4*>(out)[idx] = o;
-      if (save) reinterpret_cast<float4*>(save)[idx] = o;
-    }
-  }
-}
+using namespace fused_rk4;
 
 // out[k][s] = (sum_n W[k][n] * g[n][s]) * (mask[k][s] > 0 ? 1 : 0) for
 // k < K, s < TILE (no mask factor when mask is null). W is (K, N) row-major:
-// the transpose of the forward product, u = W g.
+// the transpose of the forward product, u = W g. BF16: g is read rounded.
+template <bool BF16>
 __device__ __forceinline__ void dense_t(const float* __restrict__ W,
                                         const float* g, float* out,
                                         const float* mask, int K, int N) {
@@ -139,7 +91,8 @@ __device__ __forceinline__ void dense_t(const float* __restrict__ W,
         const float4 w = __ldg(w4 + i * n4 + nq);  // W[4rq+i][4nq .. 4nq+3]
         wv[i][0] = w.x; wv[i][1] = w.y; wv[i][2] = w.z; wv[i][3] = w.w;
         const float4 a = g4[(4 * nq + i) * SQ];     // g[4nq+i][4sq .. 4sq+3]
-        gv[i][0] = a.x; gv[i][1] = a.y; gv[i][2] = a.z; gv[i][3] = a.w;
+        gv[i][0] = operand<BF16>(a.x); gv[i][1] = operand<BF16>(a.y);
+        gv[i][2] = operand<BF16>(a.z); gv[i][3] = operand<BF16>(a.w);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -167,6 +120,8 @@ __device__ __forceinline__ void dense_t(const float* __restrict__ W,
 // D[k][n] += sum_s A[k][s] * G[n][s] for k < K, n < N (D row-major (K, N)),
 // and Db[n] += sum_s G[n][s]. Element (k, n) is always updated by the same
 // thread, so successive calls on one D need no barrier between them.
+// BF16: A and G are read rounded for the product; the bias sum takes G as it is.
+template <bool BF16>
 __device__ __forceinline__ void outer_acc(float* D, float* Db, const float* A,
                                           const float* G, int K, int N) {
   const int n4 = N / 4;
@@ -184,9 +139,11 @@ __device__ __forceinline__ void outer_acc(float* D, float* Db, const float* A,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float4 a = reinterpret_cast<const float4*>(A)[(4 * kq + i) * SQ + sq];
-        av[i][0] = a.x; av[i][1] = a.y; av[i][2] = a.z; av[i][3] = a.w;
+        av[i][0] = operand<BF16>(a.x); av[i][1] = operand<BF16>(a.y);
+        av[i][2] = operand<BF16>(a.z); av[i][3] = operand<BF16>(a.w);
         const float4 g = reinterpret_cast<const float4*>(G)[(4 * nq + i) * SQ + sq];
-        gv[i][0] = g.x; gv[i][1] = g.y; gv[i][2] = g.z; gv[i][3] = g.w;
+        gv[i][0] = operand<BF16>(g.x); gv[i][1] = operand<BF16>(g.y);
+        gv[i][2] = operand<BF16>(g.z); gv[i][3] = operand<BF16>(g.w);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -204,21 +161,6 @@ __device__ __forceinline__ void outer_acc(float* D, float* Db, const float* A,
     for (int j = 0; j < TILE; ++j) s += G[n * TILE + j];
     Db[n] += s;
   }
-}
-
-// Mechanistic drift with GD = 0 (so k_GE = k_GE0); the GE row is zero.
-// As fused_rk4_fwd.cu.
-__device__ __forceinline__ void mech(const float* y, float meal, const float* P,
-                                     float* d) {
-  const float G = y[0], I = y[1], Glu = y[2], GLP1 = y[3], FFA = y[5];
-  const float Pi = 1.f + P[RHO] * GLP1;
-  d[1] = Pi * P[A_GI] * (G - P[G_B]) - P[K_I] * (I - P[I_B]);
-  const float glp1_eff = P[E_MAX] * GLP1 / (P[EC_50] + GLP1);
-  d[2] = -glp1_eff * (Glu - P[GLU_B]);
-  d[3] = P[V_MAX] * G / (P[K_M] + G) - P[K_L] * GLP1;
-  d[5] = -P[P_7] * FFA - P[P_8] * I * FFA + P[P_9] * G * FFA;
-  d[0] = meal - 0.01f * (I - P[I_B]) + 0.005f * (Glu - P[GLU_B]) - P[K_GE0] * G;
-  d[4] = 0.f;
 }
 
 // Transpose of the mechanistic drift at stage state (G, I, Glu, GLP1, FFA)
@@ -263,6 +205,8 @@ size_t smem_bytes(int C, int in_pad, int H) {
   return sizeof(float) * (size_t)(2 * in_pad + 2 * H + NOUT + 2 * NP + 4 * NS + C) * TILE;
 }
 
+// BF16: mlp_dtype='bf16', see fused_rk4_common.cuh.
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
                      const float* __restrict__ gbar,  // (T, 6, B)
@@ -394,14 +338,14 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
           int K = in_pad;
           for (int l = 0; l < L; ++l) {
             float* dst = (l & 1) ? Hb : Ha;
-            dense(w, bias, in, dst, st + (in_pad + l * H) * TILE, K, H, true);
+            dense<BF16>(w, bias, in, dst, st + (in_pad + l * H) * TILE, K, H, true);
             __syncthreads();
             w += K * H;
             bias += H;
             in = dst;
             K = H;
           }
-          dense(w, bias, in, R, nullptr, K, NOUT, false);
+          dense<BF16>(w, bias, in, R, nullptr, K, NOUT, false);
           __syncthreads();
           if (owner) {
             const float wgt = (c == 1 || c == 2) ? 2.0f : 1.0f;
@@ -440,17 +384,17 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
           // MLP transpose: g is the cotangent of the current layer's output
           const float* g = R;
           int N = NOUT;
-          outer_acc(part + w_off(L), part + bias_off + L * H, act(L - 1), g, H, NOUT);
+          outer_acc<BF16>(part + w_off(L), part + bias_off + L * H, act(L - 1), g, H, NOUT);
           for (int l = L - 1; l >= 0; --l) {
             float* gz = (l & 1) ? Hb : Ha;
-            dense_t(wpack + w_off(l + 1), g, gz, act(l), H, N);
+            dense_t<BF16>(wpack + w_off(l + 1), g, gz, act(l), H, N);
             __syncthreads();
             g = gz;
             N = H;
-            outer_acc(part + w_off(l), part + bias_off + l * H, l > 0 ? act(l - 1) : st, g,
+            outer_acc<BF16>(part + w_off(l), part + bias_off + l * H, l > 0 ? act(l - 1) : st, g,
                       l > 0 ? H : in_pad, H);
           }
-          dense_t(wpack, g, dX, nullptr, in_pad, H);
+          dense_t<BF16>(wpack, g, dX, nullptr, in_pad, H);
           __syncthreads();
           if (owner) {
             float P[NP], dy[NS];
@@ -513,31 +457,22 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
   }
 }
 
-// out[e] = sum_g partials[g][e], g in block order: deterministic.
-__global__ void sum_partials(const float* __restrict__ partials, int n_blocks, int n,
-                             float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s = 0.f;
-  for (int g = 0; g < n_blocks; ++g) s += partials[(size_t)g * n + e];
-  out[e] = s;
-}
-
 }  // namespace
 
 // Number of blocks to launch: those that can be resident at once, at most
 // one per 32-sample tile. The caller sizes `partials` and `scratch` by it.
-extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int* grid) {
+extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int bf16, int* grid) {
   const size_t smem = smem_bytes(C, in_pad, H);
+  auto kernel = bf16 ? fused_rk4_bwd_kernel<true> : fused_rk4_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rk4_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_rk4_bwd_kernel, NTHREADS, smem)) != cudaSuccess)
+           &per_sm, kernel, NTHREADS, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int tiles = (B + TILE - 1) / TILE;
@@ -551,7 +486,7 @@ extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* 
                              float* ybar0, float* dp, float* dctx, float* dflat,
                              float* partials, float* scratch, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps, int n_cp,
-                             int abs_mode, int grid, int n_w, void* stream) {
+                             int abs_mode, int bf16, int grid, int n_w, void* stream) {
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && (!ctx || !dctx)) ||
@@ -560,14 +495,15 @@ extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* 
       (long long)T * NS * B > 0x7fffffffLL)  // int offsets
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(C, in_pad, H);
+  auto kernel = bf16 ? fused_rk4_bwd_kernel<true> : fused_rk4_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rk4_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  fused_rk4_bwd_kernel<<<grid, NTHREADS, smem, s>>>(
+  kernel<<<grid, NTHREADS, smem, s>>>(
       traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0, dp, dctx, partials,
       scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sum_partials<<<(n_w + 255) / 256, 256, 0, s>>>(partials, grid, n_w, dflat);
+  sum_rows<<<(n_w + 255) / 256, 256, 0, s>>>(partials, grid, n_w, dflat);
   return (int)cudaGetLastError();
 }

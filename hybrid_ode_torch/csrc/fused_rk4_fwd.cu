@@ -35,6 +35,10 @@
 //     (in, out) layout) and a float4 of activations per k.
 //   * Lanes past B are masked (no loads, no stores), not padded.
 //
+// mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): the
+// products read their activations rounded to bf16 and `wpack` holds weights
+// rounded by the caller; the f32 instantiation is the code without it.
+//
 // Built with -fmad=false (hybrid_ode_torch/ops/fused_rk4.py): the matmul
 // loops use explicit fmaf; everything else rounds after each operation, as
 // the plain PyTorch version's tensor ops do, so the adjoint's recomputed
@@ -44,79 +48,14 @@
 // loaded with ctypes (hybrid_ode_torch/ops/fused_rk4.py). It returns the
 // cudaError_t of the launch.
 
-#include <cuda_runtime.h>
+#include "fused_rk4_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;       // samples per block
-constexpr int NTHREADS = 256;  // threads per block
-constexpr int NP = 17;         // mechanistic parameters, PARAM_ORDER
-constexpr int NS = 6;          // states
-constexpr int NF = 9;          // features before the context: t, y(6), GLP1, tVNS
-constexpr int NOUT = 8;        // last layer's output rows (6 used, 2 zero pad)
+using namespace fused_rk4;
 
-// PARAM_ORDER indices (hybrid_ode_torch/ops/fused_rk4.py)
-enum { A_GI, K_I, RHO, G_B, I_B, E_MAX, EC_50, GLU_B, V_MAX, K_M, K_L,
-       K_GE0, IGD_50, HILL_G, P_7, P_8, P_9 };
-
-// out[n][s] = act(sum_k W[k][n] * in[k][s] + bias[n]) for n < N, s < TILE.
-// W is (K, N) row-major, N a multiple of 4; in / out are [rows][TILE].
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ bias,
-                                      const float* in, float* out,
-                                      int K, int N, bool relu) {
-  constexpr int SQ = TILE / 4;  // sample quads
-  const int sq = threadIdx.x % SQ;
-  const int n4 = N / 4;
-  const float4* a4 = reinterpret_cast<const float4*>(in) + sq;
-  for (int rq = threadIdx.x / SQ; rq < n4; rq += NTHREADS / SQ) {
-    const float4* w4 = reinterpret_cast<const float4*>(W) + rq;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 w = __ldg(w4 + k * n4);
-      const float4 a = a4[k * SQ];
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
-    }
-    const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + rq);
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-    float4* o4 = reinterpret_cast<float4*>(out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][j] + bv[i];
-        if (relu) v[j] = v[j] < 0.f ? 0.f : v[j];  // NaN propagates, as max(x, 0)
-      }
-      o4[(4 * rq + i) * SQ + sq] = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-// Mechanistic drift with GD = 0 (so k_GE = k_GE0); the GE row is zero.
-__device__ __forceinline__ void mech(const float* y, float meal, const float* P,
-                                     float* d) {
-  const float G = y[0], I = y[1], Glu = y[2], GLP1 = y[3], FFA = y[5];
-  const float Pi = 1.f + P[RHO] * GLP1;
-  d[1] = Pi * P[A_GI] * (G - P[G_B]) - P[K_I] * (I - P[I_B]);
-  const float glp1_eff = P[E_MAX] * GLP1 / (P[EC_50] + GLP1);
-  d[2] = -glp1_eff * (Glu - P[GLU_B]);
-  d[3] = P[V_MAX] * G / (P[K_M] + G) - P[K_L] * GLP1;
-  d[5] = -P[P_7] * FFA - P[P_8] * I * FFA + P[P_9] * G * FFA;
-  d[0] = meal - 0.01f * (I - P[I_B]) + 0.005f * (Glu - P[GLU_B]) - P[K_GE0] * G;
-  d[4] = 0.f;
-}
-
+// BF16: mlp_dtype='bf16', see fused_rk4_common.cuh.
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS)
 fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
                      const float* __restrict__ ts,    // (T, B)
@@ -213,14 +152,14 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
         int K = in_pad;
         for (int l = 0; l < n_layers; ++l) {
           float* dst = (l & 1) ? Hb : Ha;
-          dense(w, bias, in, dst, K, H, true);
+          dense<BF16>(w, bias, in, dst, nullptr, K, H, true);
           __syncthreads();
           w += K * H;
           bias += H;
           in = dst;
           K = H;
         }
-        dense(w, bias, in, R, K, NOUT, false);
+        dense<BF16>(w, bias, in, R, nullptr, K, NOUT, false);
         __syncthreads();
         if (owner) {
           const float wgt = (c == 1 || c == 2) ? 2.0f : 1.0f;
@@ -251,19 +190,19 @@ extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal
                              const float* wpack, const float* pvec,
                              const int* cidx, float* out, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps,
-                             int n_cp, int abs_mode, void* stream) {
+                             int n_cp, int abs_mode, int bf16, void* stream) {
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && !ctx) ||
       (n_cp && !cidx) || (long long)T * NS * B > 0x7fffffffLL)  // int offsets
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)(in_pad + 2 * H + NOUT) * TILE;
+  auto kernel = bf16 ? fused_rk4_fwd_kernel<true> : fused_rk4_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rk4_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + TILE - 1) / TILE);
-  fused_rk4_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       y0, ts, meal, tvns, ctx, wpack, pvec, cidx, out, B, T, C, in_pad, H,
       n_layers, substeps, n_cp, abs_mode);
   return (int)cudaGetLastError();

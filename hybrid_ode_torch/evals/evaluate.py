@@ -97,8 +97,9 @@ def evaluate_model(
         raise NotImplementedError("ensemble evaluation is not ported yet: ROADMAP "
                                   "Queue A 11 (ensembles)")
     if identify_steps or identify_params_steps:
-        raise NotImplementedError("test-time identification is not ported yet: "
-                                  "ROADMAP Queue A 12 (context identification)")
+        raise NotImplementedError("test-time identification at evaluation runs for "
+                                  "ensembles only, which are not ported yet: ROADMAP "
+                                  "Queue A 11 (ensembles)")
     point_sigma = None
     if val_ds is not None:
         point_sigma = fit_observation_noise(params, val_ds, config, batch_size)

@@ -1,10 +1,11 @@
 """Hybrid mechanistic-ODE + NN-residual model: dx/dt = f_physio + g_NN.
 
-Port of `hybrid_ode_tpu/models/hybrid.py`, serving and training paths:
-configuration, parameter initialisation, the hybrid field, single and
-batched forward solves, the fused-kernel dispatch (differentiable through
-the adjoint kernel), the context encoder, the multiple-shooting view and
-`hybrid_loss`. Parameters are a
+Port of `hybrid_ode_tpu/models/hybrid.py`, serving, training and test-time
+identification paths: configuration, parameter initialisation, the hybrid
+field, single and batched forward solves, the fused-kernel dispatch
+(differentiable through the adjoint kernel), the context encoder, test-time
+identification of context codes and of per-window parameter multipliers, the
+amortised encoder, the multiple-shooting view and `hybrid_loss`. Parameters are a
 nested dict {'ode': {...}, 'nn': {...}, ['enc'], ['norm']} of tensors, the
 JAX pytree's layout, so JAX checkpoints load as they are
 (`hybrid_ode_torch/utils/convert.py`).
@@ -293,6 +294,357 @@ def with_context(params: Mapping[str, Any], batch: Mapping[str, Any],
     if controls is None:
         controls = Controls(ts=batch["time_points"], signals={})
     return Controls(ts=controls.ts, signals=dict(controls.signals, context=ctx))
+
+
+class _Adam:
+    """optax's `adam` / `adamw` on a list of tensors, written out: moments
+    mu <- b1 mu + (1 - b1) g, nu <- b2 nu + (1 - b2) g^2, both bias-corrected
+    by 1 - b^count, update mu_hat / (sqrt(nu_hat) + eps) with eps outside the
+    root, plus weight_decay * x (decoupled), times -lr. No clipping and no
+    schedule. Updates the tensors in place."""
+
+    def __init__(self, tensors, lr: float, weight_decay: float = 0.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.tensors = list(tensors)
+        self.lr, self.weight_decay, self.b1, self.b2, self.eps = lr, weight_decay, b1, b2, eps
+        self.mu = [torch.zeros_like(x) for x in self.tensors]
+        self.nu = [torch.zeros_like(x) for x in self.tensors]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        self.count += 1
+        c1, c2 = 1.0 - self.b1 ** self.count, 1.0 - self.b2 ** self.count
+        for x, g, mu, nu in zip(self.tensors, grads, self.mu, self.nu):
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
+            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.weight_decay:
+                upd = upd + self.weight_decay * x
+            x.sub_(self.lr * upd)
+
+
+def _frozen(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The params tree with every leaf detached: the model is held fixed."""
+    return {g: {k: v.detach() for k, v in grp.items()} for g, grp in params.items()}
+
+
+def _window_misfit(rollout, obs, ts, signals, mask, denom, w_state):
+    """Per-window masked, weighted data misfit (B,) of `rollout(controls)`;
+    non-finite squared errors count as 1e6 BEFORE the sum, so a diverged
+    window neither poisons the batch's values nor, through the masked
+    branch, its gradients."""
+    preds = rollout(Controls(ts=ts, signals=signals))
+    se = ((preds - obs) ** 2) * w_state * mask[..., None]
+    se = torch.nan_to_num(se, nan=1e6, posinf=1e6)
+    return torch.sum(se, dim=(1, 2)) / denom
+
+
+def _refine(x0: torch.Tensor, data_vec, trust, steps: int, lr: float) -> torch.Tensor:
+    """`steps` Adam iterations on sum(data_vec(x) + trust(x)) from x0, keeping
+    for every window the iterate with the lowest data misfit it ever had
+    (strict <, the final candidate included): a window whose refinement
+    diverges or overfits keeps an earlier code."""
+    x = x0.detach().clone().requires_grad_(True)
+    opt = _Adam([x], lr)
+    best_x = x0.detach().clone()
+    with torch.no_grad():
+        best_data = data_vec(x0.detach())
+    for _ in range(steps):
+        dvec = data_vec(x)
+        (g,) = torch.autograd.grad(torch.sum(dvec + trust(x)), x)
+        with torch.no_grad():
+            improved = dvec.detach() < best_data
+            best_x = torch.where(improved[:, None], x.detach(), best_x)
+            best_data = torch.where(improved, dvec.detach(), best_data)
+        opt.step([torch.nan_to_num(g)])
+    with torch.no_grad():
+        dvec = data_vec(x.detach())
+        return torch.where((dvec < best_data)[:, None], x.detach(), best_x)
+
+
+def _identification_window(params, batch, k: int):
+    """The first k points of a batch as tensors on the params' device:
+    (y0, obs_k, ts_k, signals_k, mask_k, denom, w_state)."""
+    dev = next(iter(params["ode"].values())).device
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    obs_k = t(batch["observations"])[:, :k]
+    ts_k = t(batch["time_points"])[:, :k]
+    mask = batch.get("mask")
+    mask_k = t(mask)[:, :k] if mask is not None else torch.ones_like(ts_k, dtype=obs_k.dtype)
+    sig_k = {n: t(v)[:, :k] for n, v in (batch.get("external_inputs") or {}).items()}
+    denom = torch.clamp(torch.sum(mask_k, dim=1) * obs_k.shape[-1], min=1.0)  # (B,)
+    # the same per-state weighting as training (zero for placeholder channels)
+    w_state = batch.get("loss_weights")
+    w_state = (t(w_state) if w_state is not None
+               else torch.ones((obs_k.shape[-1],), dtype=obs_k.dtype, device=dev))
+    return t(batch["initial_state"]), obs_k, ts_k, sig_k, mask_k, denom, w_state
+
+
+def identify_context(
+    params: Mapping[str, Any],
+    batch: Mapping[str, Any],
+    config: HybridConfig,
+    *,
+    steps: int = 100,
+    lr: float = 0.02,
+    prior_std: float = 0.2,
+    points: Optional[int] = None,
+    init: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Test-time subject identification: refine each window's context code by
+    Adam on the masked data misfit over its first `points` observations
+    (default `config.context_points`; may exceed it: the encoder is fixed to
+    its trained input length, the identification solve is not), with the
+    trained model frozen. Returns the refined (B, context_dim) codes; inject
+    them as `Controls(signals={'context': ctx, ...})`.
+
+    The start is `init` (e.g. an `amortize_encoder` output), else the
+    encoder's codes, else zeros. `prior_std` is a Gaussian trust region
+    around that start, ||ctx - ctx0||^2 / (2 sigma^2), not a zero-centred
+    prior: a trained encoder's operating point can sit at large codes. Each
+    window returns the code with the lowest data misfit it ever saw, so a
+    window whose refinement diverges keeps its initial code.
+
+    With config.use_pallas the gradient with respect to the codes comes out
+    of the fused adjoint kernel's context cotangent ('params' mode: through
+    its per-sample parameter path)."""
+    k = points if points is not None else config.context_points
+    if k <= 0:
+        raise ValueError("identify_context requires context_points > 0")
+    params = _frozen(params)
+    y0, obs_k, ts_k, sig_k, mask_k, denom, w_state = _identification_window(params, batch, k)
+    if init is not None:
+        ctx0 = torch.as_tensor(init, device=obs_k.device).detach()
+    elif "enc" in params:
+        # the encoder reads its trained window even when the solve is longer
+        ctx0 = encode_context(params["enc"], torch.as_tensor(batch["observations"], device=obs_k.device),
+                              torch.as_tensor(batch["time_points"], device=obs_k.device),
+                              config.context_points, config.activation)
+    else:
+        dim = (len(config.context_params) if config.context_mode == "params"
+               else config.context_dim)
+        ctx0 = torch.zeros((obs_k.shape[0], dim), dtype=obs_k.dtype, device=obs_k.device)
+
+    def data_vec(ctx):
+        return _window_misfit(lambda c: batched_forward(params, y0, ts_k, c, config), obs_k,
+                              ts_k, dict(sig_k, context=ctx), mask_k, denom, w_state)
+
+    def trust(ctx):
+        return torch.mean((ctx - ctx0) ** 2, dim=-1) / (2.0 * prior_std ** 2)
+
+    return _refine(ctx0, data_vec, trust, steps, lr)
+
+
+def forward_with_param_deltas(
+    params: Mapping[str, Any],
+    deltas: torch.Tensor,           # (B, P) log-scale multipliers
+    y0: torch.Tensor,               # (B, n)
+    ts: torch.Tensor,               # (B, T)
+    controls: Optional[Controls],
+    config: HybridConfig,
+) -> torch.Tensor:
+    """Batched rollout with per-window mechanistic parameters: window b
+    integrates with `ode[k] * exp(deltas[b, i])` for the i-th sorted ODE
+    parameter name; the decode side of `identify_params`. (B, T, n). The
+    per-window parameters are (B,) tensors that broadcast over the batch in
+    the field; this is the scan solver, never the fused kernel."""
+    names = sorted(params["ode"].keys())
+    ode = {k: params["ode"][k] * torch.exp(deltas[:, i]) for i, k in enumerate(names)}
+    return forward({**params, "ode": ode}, y0, ts, controls, config)
+
+
+def identify_params(
+    params: Mapping[str, Any],
+    batch: Mapping[str, Any],
+    config: HybridConfig,
+    *,
+    context: Optional[torch.Tensor] = None,
+    steps: int = 150,
+    lr: float = 0.02,
+    prior_std: float = 0.1,
+    points: Optional[int] = None,
+) -> torch.Tensor:
+    """Test-time identification beyond the context code: refine per-window
+    log-scale multipliers on all mechanistic parameters against the first
+    `points` observations (default max(context_points, 12)), model frozen.
+    Returns (B, P) deltas for the sorted `params['ode']` names; roll out with
+    `forward_with_param_deltas`. The trust region is zero-centred,
+    ||delta||^2 / (2 sigma^2); the best-iterate guard is `identify_context`'s.
+    `context`: optional (B, ctx_dim) codes from `identify_context`; the
+    deltas then refine on top of them."""
+    k = points if points is not None else max(config.context_points, 12)
+    params = _frozen(params)
+    y0, obs_k, ts_k, sig_k, mask_k, denom, w_state = _identification_window(params, batch, k)
+    if context is not None:
+        sig_k["context"] = torch.as_tensor(context, device=obs_k.device).detach()
+
+    def data_vec(deltas):
+        return _window_misfit(
+            lambda c: forward_with_param_deltas(params, deltas, y0, ts_k, c, config),
+            obs_k, ts_k, sig_k, mask_k, denom, w_state)
+
+    def trust(deltas):
+        return torch.mean(deltas ** 2, dim=-1) / (2.0 * prior_std ** 2)
+
+    d0 = torch.zeros((obs_k.shape[0], len(params["ode"])), dtype=obs_k.dtype,
+                     device=obs_k.device)
+    return _refine(d0, data_vec, trust, steps, lr)
+
+
+def amortize_encoder(
+    params: Mapping[str, Any],
+    batch: Mapping[str, Any],
+    config: HybridConfig,
+    *,
+    points: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    id_steps: int = 150,
+    id_lr: float = 0.02,
+    prior_std: float = 0.3,
+    hidden: int = 64,
+    n_layers: int = 2,
+    epochs: int = 3000,
+    lr: float = 1e-3,
+    weight_decay: float = 1e-4,
+    val_frac: float = 0.15,
+    targets: Optional[torch.Tensor] = None,
+    finetune_epochs: int = 400,
+    finetune_lr: float = 3e-4,
+    finetune_chunk: int = 50,
+    init_encoder: Optional[Mapping[str, torch.Tensor]] = None,
+    permutation: Optional[torch.Tensor] = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, float]]:
+    """Distill `identify_context` into a feed-forward encoder over a
+    `points`-long window, so that deployment pays one MLP pass and not an
+    inner optimisation. Returns `(enc_params, info)`; the encoder works with
+    `encode_context(enc_params, obs, ts, points)`.
+
+    Stage 1: regress the identified codes (`targets`, else `identify_context`
+    on `batch`) with AdamW; a `val_frac` split keeps the iterate with the
+    best held-out code MSE. Stage 2 (`finetune_epochs` > 0): fine-tune the
+    encoder through the frozen model on the full-window masked data loss
+    (the encoder still reads only the first `points` observations), again
+    keeping the best held-out iterate, starting from stage 1's; it runs in
+    host chunks of `finetune_chunk` steps, synchronising the device between
+    chunks.
+
+    `generator` (a CPU generator, default seed 0) draws the encoder's
+    initial weights and the train / validation permutation; `init_encoder`
+    and `permutation` supply them instead (another framework's draws differ,
+    so a comparison passes both in)."""
+    k = points if points is not None else config.context_points
+    generator = generator if generator is not None else torch.Generator().manual_seed(0)
+    params = _frozen(params)
+    dev = next(iter(params["ode"].values())).device
+    if targets is None:
+        targets = identify_context(params, batch, config, steps=id_steps, lr=id_lr,
+                                   prior_std=prior_std, points=k)
+    targets = torch.as_tensor(targets, device=dev).detach()
+    B, out_dim = targets.shape
+    obs = torch.as_tensor(batch["observations"], device=dev)
+    ts = torch.as_tensor(batch["time_points"], device=dev)
+    n = obs.shape[-1]
+
+    if init_encoder is not None:
+        enc = {name: torch.as_tensor(v, device=dev).detach().clone()
+               for name, v in init_encoder.items()}
+    else:
+        enc = init_mlp_params(generator, input_dim=k * (n + 1), hidden_dim=hidden,
+                              output_dim=out_dim, n_layers=n_layers, dtype=obs.dtype, device=dev)
+        # regression head: small non-zero output init (a zero init would start
+        # at the population code and stall)
+        wlast = f"w{n_layers}"
+        enc[wlast] = (0.05 * torch.randn(enc[wlast].shape, generator=generator,
+                                         dtype=obs.dtype)).to(dev)
+    names = sorted(enc)
+    for v in enc.values():
+        v.requires_grad_(True)
+
+    perm = (torch.randperm(B, generator=generator) if permutation is None
+            else torch.as_tensor(permutation)).to(dev)
+    n_val = max(1, int(val_frac * B)) if B > 4 else 0
+    val_idx, tr_idx = perm[:n_val], perm[n_val:]
+
+    def snapshot():
+        return {name: enc[name].detach().clone() for name in names}
+
+    def code_mse(idx):
+        pred = encode_context(enc, obs[idx], ts[idx], k, config.activation)
+        return torch.mean((pred - targets[idx]) ** 2)
+
+    opt = _Adam([enc[name] for name in names], lr, weight_decay=weight_decay)
+    best_enc, best_val = snapshot(), float("inf")
+    loss = torch.zeros(())
+    for _ in range(epochs):
+        loss = code_mse(tr_idx)
+        opt.step(torch.autograd.grad(loss, [enc[name] for name in names]))
+        with torch.no_grad():
+            v = float(code_mse(val_idx)) if n_val else float(loss.detach())
+        if v < best_val:
+            best_enc, best_val = snapshot(), v
+
+    info = {
+        "points": k,
+        "n_windows": int(B),
+        "val_code_mse": float(best_val),
+        "final_train_mse": float(loss.detach()),
+        "target_code_std": float(torch.std(targets, unbiased=False)),
+    }
+
+    if finetune_epochs > 0:
+        # stage 2: decoder-aware fine-tune on the full-window data loss
+        y0 = torch.as_tensor(batch["initial_state"], device=dev)
+        mask = batch.get("mask")
+        mask_f = (torch.as_tensor(mask, device=dev) if mask is not None
+                  else torch.ones_like(ts, dtype=obs.dtype))
+        sig = {nm: torch.as_tensor(v, device=dev)
+               for nm, v in (batch.get("external_inputs") or {}).items()}
+        w_state = batch.get("loss_weights")
+        w_state = (torch.as_tensor(w_state, device=dev) if w_state is not None
+                   else torch.ones((n,), dtype=obs.dtype, device=dev))
+        denom = torch.clamp(torch.sum(mask_f, dim=1) * n, min=1.0)  # (B,)
+
+        def data_loss(idx):
+            ctx = encode_context(enc, obs[idx], ts[idx], k, config.activation)
+            signals = dict({nm: v[idx] for nm, v in sig.items()}, context=ctx)
+            return torch.mean(_window_misfit(
+                lambda c: batched_forward(params, y0[idx], ts[idx], c, config),
+                obs[idx], ts[idx], signals, mask_f[idx], denom[idx], w_state))
+
+        with torch.no_grad():
+            for name in names:  # start from the distilled encoder
+                enc[name].copy_(best_enc[name])
+        val_or_tr = val_idx if n_val else tr_idx
+        with torch.no_grad():
+            val0 = float(data_loss(val_or_tr))
+        opt_ft = _Adam([enc[name] for name in names], finetune_lr)
+        best_ft = val0
+        ft_losses = []
+        done = 0
+        while done < finetune_epochs:
+            step_n = min(finetune_chunk, finetune_epochs - done)
+            for _ in range(step_n):
+                loss = data_loss(tr_idx)
+                grads = torch.autograd.grad(loss, [enc[name] for name in names])
+                opt_ft.step([torch.nan_to_num(g) for g in grads])
+                with torch.no_grad():
+                    v = float(data_loss(val_or_tr))
+                if v < best_ft:
+                    best_enc, best_ft = snapshot(), v
+                ft_losses.append(float(loss.detach()))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            done += step_n
+        info["val_data_loss_distilled"] = val0
+        info["val_data_loss_finetuned"] = float(best_ft)
+        info["finetune_train_first"] = ft_losses[0]
+        info["finetune_train_last"] = ft_losses[-1]
+
+    return best_enc, info
 
 
 def controls_from_batch(batch: Mapping[str, Any]) -> Optional[Controls]:

@@ -1,21 +1,32 @@
 """Fused full-trajectory RK4 for the hybrid ODE-NN field: forward and adjoint.
 
-Port of `hybrid_ode_tpu/ops/pallas_rk4.py`. Its two default TPU kernels
-become hand-written CUDA kernels for sm_90a, built with nvcc at first use
-and bound with ctypes:
+Port of `hybrid_ode_tpu/ops/pallas_rk4.py`. Its three TPU kernels become
+hand-written CUDA kernels for sm_90a, built with nvcc at first use and bound
+with ctypes:
   * `_fwd_kernel` -> `csrc/fused_rk4_fwd.cu`: integrates the whole
     trajectory and writes the state at every observation point;
   * `_bwd_kernel_hand` -> `csrc/fused_rk4_bwd.cu`: the reverse-time discrete
     RK4 adjoint from the saved observation-grid trajectory, with the MLP and
-    mechanistic transposes written by hand.
-Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`),
-the same arithmetic in torch ops on the same (features, batch) layout.
+    mechanistic transposes written by hand (`bwd_impl='hand'`, the default);
+  * `_bwd_kernel` -> `csrc/fused_rk4_bwd_vjp.cu`: the same adjoint derived a
+    second time, as the reverse sweep that differentiating one RK4 substep
+    generates, in two schedules (`bwd_impl='recompute'`, `'chained'`) and
+    six timing probes (`'probe_*'`, partial gradients by design).
+Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`,
+`_bwd_vjp_plain`), the same function in torch ops on the same (features,
+batch) layout; `_bwd_vjp_plain` takes its transposes from torch autograd.
 
-`fused_rk4_fwd` and `fused_rk4_bwd` are the wrappers: on CPU tensors they run
-the plain version, on CUDA tensors they launch the kernel (and count the
-launch in `fused_rk4_fwd_launches` / `fused_rk4_bwd_launches`) or raise.
-There is no fallback between the two. `FusedRK4` pairs them as a
+`fused_rk4_fwd`, `fused_rk4_bwd` and `fused_rk4_bwd_vjp` are the wrappers: on
+CPU tensors they run the plain version, on CUDA tensors they launch the
+kernel (and count the launch in `fused_rk4_fwd_launches` /
+`fused_rk4_bwd_launches` / `fused_rk4_bwd_vjp_launches`) or raise. There is
+no fallback between the two. `FusedRK4` pairs them as a
 `torch.autograd.Function`; `fused_rk4_hybrid` is the differentiable entry.
+
+`mlp_dtype='bf16'`: every MLP product (forward and transposed) takes its
+operands rounded to bf16, round to nearest even, and accumulates in f32;
+biases, ReLU, states, the mechanistic drift, the RK combination and every
+cotangent accumulator stay f32. The kernels get the weights rounded once.
 
 Layouts (the kernels', equivalent to the TPU packing):
   * y0 (B, 6); ts / meal / tvns transposed to (T, B); context to (C, B).
@@ -54,6 +65,22 @@ N_OUT = 8       # last layer's output rows (6 states + 2 zero rows)
 #: kernel launches since the count was last set to 0 (plain runs do not count)
 fused_rk4_fwd_launches = 0
 fused_rk4_bwd_launches = 0
+fused_rk4_bwd_vjp_launches = 0
+
+MLP_DTYPES = ("f32", "bf16")
+#: bwd_impl of the second-derivation adjoint -> (schedule, differentiates the
+#: weights, ... the parameters and context, field parts, forward-only passes)
+VJP_IMPLS = {
+    "recompute": ("recompute", True, True, "both", 0),
+    "chained": ("chained", True, True, "both", 0),
+    "probe_y": ("chained", False, False, "both", 0),
+    "probe_yw": ("chained", True, False, "both", 0),
+    "probe_y_mlp": ("chained", False, False, "mlp", 0),
+    "probe_y_mech": ("chained", False, False, "mech", 0),
+    "probe_fwd1": ("chained", False, False, "both", 1),
+    "probe_fwd2": ("chained", False, False, "both", 2),
+}
+BWD_IMPLS = ("hand", *VJP_IMPLS)
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -167,8 +194,44 @@ def _fixed_features(ctx_t, ctx_param_idx, in_pad, B, like) -> List[torch.Tensor]
     return fixed
 
 
-def _stage_eval(t, Y, m, v, P, fixed, pw: PackedWeights):
-    """One field evaluation: (k (6, B), features X, post-ReLU activations)."""
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _RoundOperand(torch.autograd.Function):
+    """x rounded to bf16; the cotangent passes through as it is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _bf16(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """Identity whose cotangent is rounded to bf16: placed on a product's
+    output, it makes the transposed products take that operand rounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _bf16(g)
+
+
+def _operand(mlp_dtype: str):
+    """What an MLP product does to an operand: bf16 rounding or nothing."""
+    return _RoundOperand.apply if mlp_dtype == "bf16" else (lambda x: x)
+
+
+def _stage_eval(t, Y, m, v, P, fixed, pw: PackedWeights, mlp_dtype: str = "f32",
+                parts: str = "both"):
+    """One field evaluation: (k (6, B), features X, post-ReLU activations).
+    `parts` 'mlp' / 'mech' keeps only that part of the field (timing probes)."""
     G, I, Glu, GLP1, FFA = Y[0], Y[1], Y[2], Y[3], Y[5]
     Pi = 1.0 + P["rho"] * GLP1
     dI = Pi * P["a_GI"] * (G - P["G_b"]) - P["k_I"] * (I - P["I_b"])
@@ -179,15 +242,20 @@ def _stage_eval(t, Y, m, v, P, fixed, pw: PackedWeights):
     dG = m - 0.01 * (I - P["I_b"]) + 0.005 * (Glu - P["Glu_b"]) - P["k_GE0"] * G
     dY = torch.stack([dG, dI, dGlu, dGLP1, torch.zeros_like(G), dFFA])
     X = torch.cat([t[None], Y, GLP1[None], v[None]] + fixed)
+    if parts == "mech":
+        return dY, X, []
+    rnd = _operand(mlp_dtype)
+    out = _RoundCotangent.apply if mlp_dtype == "bf16" else (lambda x: x)
     acts, Hh = [], X
     for li in range(pw.n_layers):
-        Hh = torch.relu(pw.ws[li].t() @ Hh + pw.bs[li][:, None])
+        Hh = torch.relu(out(rnd(pw.ws[li]).t() @ rnd(Hh)) + pw.bs[li][:, None])
         acts.append(Hh)
-    R = pw.ws[pw.n_layers].t() @ Hh + pw.bs[pw.n_layers][:, None]
-    return dY + R[:6], X, acts
+    R = out(rnd(pw.ws[pw.n_layers]).t() @ rnd(Hh)) + pw.bs[pw.n_layers][:, None]
+    return (R[:6] if parts == "mlp" else dY + R[:6]), X, acts
 
 
-def _substep(Y, ts_l, ts_r, meal_l, meal_r, tvns_l, tvns_r, j, substeps, P, fixed, pw):
+def _substep(Y, ts_l, ts_r, meal_l, meal_r, tvns_l, tvns_r, j, substeps, P, fixed, pw,
+             mlp_dtype: str = "f32", parts: str = "both"):
     """One RK4 substep as the kernels take it; returns (Y', h, [(X, acts)] x 4)."""
     inv_s = _f32(1.0 / substeps)
     h = (ts_r - ts_l) * inv_s
@@ -198,17 +266,18 @@ def _substep(Y, ts_l, ts_r, meal_l, meal_r, tvns_l, tvns_r, j, substeps, P, fixe
         return meal_l + (meal_r - meal_l) * a, tvns_l + (tvns_r - tvns_l) * a
 
     (m0, v0), (m1, v1), (m2, v2) = ctrl(j), ctrl(j + 0.5), ctrl(j + 1.0)
-    k1, X1, a1 = _stage_eval(t, Y, m0, v0, P, fixed, pw)
-    k2, X2, a2 = _stage_eval(t + 0.5 * h, Y + 0.5 * h * k1, m1, v1, P, fixed, pw)
-    k3, X3, a3 = _stage_eval(t + 0.5 * h, Y + 0.5 * h * k2, m1, v1, P, fixed, pw)
-    k4, X4, a4 = _stage_eval(t + h, Y + h * k3, m2, v2, P, fixed, pw)
+    opt = (mlp_dtype, parts)
+    k1, X1, a1 = _stage_eval(t, Y, m0, v0, P, fixed, pw, *opt)
+    k2, X2, a2 = _stage_eval(t + 0.5 * h, Y + 0.5 * h * k1, m1, v1, P, fixed, pw, *opt)
+    k3, X3, a3 = _stage_eval(t + 0.5 * h, Y + 0.5 * h * k2, m1, v1, P, fixed, pw, *opt)
+    k4, X4, a4 = _stage_eval(t + h, Y + h * k3, m2, v2, P, fixed, pw, *opt)
     Y = Y + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return Y, h, ((X1, a1), (X2, a2), (X3, a3), (X4, a4))
 
 
 def _fwd_plain(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                substeps: int, ctx_param_idx: Sequence[int] = (),
-               ctx_param_mode: str = "mul") -> torch.Tensor:
+               ctx_param_mode: str = "mul", mlp_dtype: str = "f32") -> torch.Tensor:
     """The forward kernel's function in torch ops, on its inputs: (T, 6, B)."""
     P = _effective_params(pvec, ctx_t, ctx_param_idx, ctx_param_mode)
     fixed = _fixed_features(ctx_t, ctx_param_idx, pw.in_pad, y0.shape[0], y0)
@@ -217,28 +286,30 @@ def _fwd_plain(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     for i in range(ts_t.shape[0] - 1):
         for j in range(substeps):
             Y, _, _ = _substep(Y, ts_t[i], ts_t[i + 1], meal_t[i], meal_t[i + 1],
-                               tvns_t[i], tvns_t[i + 1], j, substeps, P, fixed, pw)
+                               tvns_t[i], tvns_t[i + 1], j, substeps, P, fixed, pw, mlp_dtype)
         out.append(Y)
     return torch.stack(out)
 
 
-def _stage_bwd(gd, X, acts, P, pw: PackedWeights, acc):
+def _stage_bwd(gd, X, acts, P, pw: PackedWeights, acc, mlp_dtype: str = "f32"):
     """Transpose of `_stage_eval` for the field cotangent gd (6, B): returns
     the stage-state cotangent (6, B) and adds the weight, bias, per-sample
     parameter and feature-mode context cotangents into `acc`
-    (`_bwd_kernel_hand.stage_bwd`, pallas_rk4.py:522-604)."""
+    (`_bwd_kernel_hand.stage_bwd`, pallas_rk4.py:522-604). With
+    mlp_dtype='bf16' both operands of every product are rounded first."""
     dws, dbs, dp, dctx = acc["dw"], acc["db"], acc["dp"], acc["dctx"]
     L = pw.n_layers
+    rnd = _operand(mlp_dtype)
     g = F.pad(gd, (0, 0, 0, N_OUT - 6))
-    dws[L] += acts[L - 1] @ g.t()
+    dws[L] += rnd(acts[L - 1]) @ rnd(g).t()
     dbs[L] += g.sum(1)
-    u = pw.ws[L] @ g
+    u = rnd(pw.ws[L]) @ rnd(g)
     for li in range(L - 1, -1, -1):
         gz = u * (acts[li] > 0)
         inp = acts[li - 1] if li > 0 else X
-        dws[li] += inp @ gz.t()
+        dws[li] += rnd(inp) @ rnd(gz).t()
         dbs[li] += gz.sum(1)
-        u = pw.ws[li] @ gz
+        u = rnd(pw.ws[li]) @ rnd(gz)
     dX = u
     if dctx is not None:
         dctx += dX[N_FEATURES: N_FEATURES + dctx.shape[0]]
@@ -288,7 +359,7 @@ def _stage_bwd(gd, X, acts, P, pw: PackedWeights, acc):
 
 def _bwd_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                substeps: int, ctx_param_idx: Sequence[int] = (),
-               ctx_param_mode: str = "mul"):
+               ctx_param_mode: str = "mul", mlp_dtype: str = "f32"):
     """The backward kernel's function in torch ops, on its inputs.
 
     traj / gbar (T, 6, B): the forward's trajectory and its cotangent.
@@ -312,18 +383,19 @@ def _bwd_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
         saved = []
         for j in range(substeps):
             Y, h, stages = _substep(Y, ts_t[i], ts_t[i + 1], meal_t[i], meal_t[i + 1],
-                                    tvns_t[i], tvns_t[i + 1], j, substeps, P, fixed, pw)
+                                    tvns_t[i], tvns_t[i + 1], j, substeps, P, fixed, pw,
+                                    mlp_dtype)
             saved.append((h, stages))
         for h, stages in reversed(saved):
             go = ybar
             dk4 = (h / 6.0) * go
-            dY4 = _stage_bwd(dk4, *stages[3], P, pw, acc)
+            dY4 = _stage_bwd(dk4, *stages[3], P, pw, acc, mlp_dtype)
             dk3 = (h / 3.0) * go + h * dY4
-            dY3 = _stage_bwd(dk3, *stages[2], P, pw, acc)
+            dY3 = _stage_bwd(dk3, *stages[2], P, pw, acc, mlp_dtype)
             dk2 = (h / 3.0) * go + 0.5 * h * dY3
-            dY2 = _stage_bwd(dk2, *stages[1], P, pw, acc)
+            dY2 = _stage_bwd(dk2, *stages[1], P, pw, acc, mlp_dtype)
             dk1 = (h / 6.0) * go + 0.5 * h * dY2
-            dY1 = _stage_bwd(dk1, *stages[0], P, pw, acc)
+            dY1 = _stage_bwd(dk1, *stages[0], P, pw, acc, mlp_dtype)
             ybar = go + dY1 + dY2 + dY3 + dY4
         ybar = ybar + gbar[i]
 
@@ -340,6 +412,83 @@ def _bwd_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
         dctx = torch.stack(rows)
     dflat = torch.cat([w.reshape(-1) for w in acc["dw"]] + acc["db"])
     return ybar.t(), dflat, dp, None if dctx is None else dctx.t()
+
+
+def _bwd_vjp_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+                   substeps: int, ctx_param_idx: Sequence[int] = (),
+                   ctx_param_mode: str = "mul", mlp_dtype: str = "f32",
+                   bwd_impl: str = "recompute"):
+    """The second-derivation adjoint kernel's function, its transposes taken
+    from `torch.autograd.grad` through the plain `_substep`, substep by
+    substep (as `jax.vjp` of `_rk4_substep_t` in `_bwd_kernel`,
+    pallas_rk4.py:692); nothing here is shared with `_bwd_plain`'s transposes.
+
+    Returns (ybar0 (B, 6), dflat, dp, dctx (B, C) or None) as `_bwd_plain`
+    does, except that 'recompute' returns dp as the (32,) row summed over the
+    batch. 'recompute' rebuilds the substep states of an interval first and
+    then differentiates each substep from its saved state; 'chained' and the
+    probes keep every substep's graph from one forward pass. What a probe
+    leaves out is zero."""
+    schedule, diff_w, diff_p, parts, fwd_passes = VJP_IMPLS[bwd_impl]
+    T, _, B = traj.shape
+    with torch.enable_grad():
+        flat = pw.flat.detach().requires_grad_(diff_w)
+        pw_l = _unflatten(flat, pw.in_pad, pw.hidden, pw.n_layers)
+        if schedule == "recompute":  # the packed row: cotangents summed over the batch
+            pv = pvec.detach().requires_grad_(True)
+        else:  # 17 per-sample rows: cotangents stay per sample
+            pv = pvec.detach()[:N_PARAMS, None].expand(N_PARAMS, B).clone().requires_grad_(diff_p)
+        ctx_l = None if ctx_t is None else ctx_t.detach().requires_grad_(diff_p)
+        wrt = {name: x for name, x in (("flat", flat), ("pv", pv), ("ctx", ctx_l))
+               if x is not None and x.requires_grad}
+        sums = {name: torch.zeros_like(x) for name, x in wrt.items()}
+
+        def step(Y, i, j):
+            P = _effective_params(pv, ctx_l, ctx_param_idx, ctx_param_mode)
+            fixed = _fixed_features(ctx_l, ctx_param_idx, pw.in_pad, B, traj)
+            return _substep(Y, ts_t[i], ts_t[i + 1], meal_t[i], meal_t[i + 1], tvns_t[i],
+                            tvns_t[i + 1], j, substeps, P, fixed, pw_l, mlp_dtype, parts)[0]
+
+        ybar = gbar[T - 1]
+        for i in range(T - 2, -1, -1):
+            if fwd_passes:  # timing probes: forward passes only
+                with torch.no_grad():
+                    last = traj[i]
+                    for _ in range(fwd_passes):
+                        Y = traj[i] + 1e-30 * last
+                        for j in range(substeps):
+                            Y = step(Y, i, j)
+                        last = Y
+                ybar = ybar + 1e-30 * last + gbar[i]
+                continue
+            pairs = []  # (input state, output state) of each substep
+            Y = traj[i]
+            for j in range(substeps):
+                Y_in = Y.detach().requires_grad_(True)
+                if schedule == "recompute":
+                    with torch.no_grad():
+                        Y = step(Y_in, i, j)
+                    pairs.append((Y_in, None))
+                else:
+                    Y = step(Y_in, i, j)
+                    pairs.append((Y_in, Y))
+            for j in range(substeps - 1, -1, -1):
+                Y_in, Y_out = pairs[j]
+                if Y_out is None:
+                    Y_out = step(Y_in, i, j)
+                grads = torch.autograd.grad(Y_out, [Y_in, *wrt.values()], ybar,
+                                            allow_unused=True)
+                ybar = grads[0]
+                for name, g in zip(sums, grads[1:]):
+                    if g is not None:
+                        sums[name] += g
+            ybar = ybar + gbar[i]
+
+    def total(name, like):  # what was not differentiated is zero
+        return sums[name] if name in sums else torch.zeros_like(like)
+
+    dctx = None if ctx_t is None else total("ctx", ctx_t).t()
+    return ybar.detach().t(), total("flat", flat), total("pv", pv), dctx
 
 
 # ---------------------------------------------------------------------------
@@ -362,12 +511,16 @@ def _sources() -> List[Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
+def _headers() -> List[Path]:
+    return sorted(_CSRC.glob("*.cuh"))
+
+
 def build_library() -> Dict[str, Tuple[Path, str]]:
     """Compile every csrc/*.cu into its own library in `hybrid_ode_torch/build/`
-    unless a build of these exact sources is there; the nvcc runs start
-    together. Returns {source stem: (path, nvcc output)}."""
+    unless a build of these exact sources and headers is there; the nvcc
+    runs start together. Returns {source stem: (path, nvcc output)}."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     tag = h.hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -398,13 +551,18 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
     libs = {stem: ctypes.CDLL(str(so)) for stem, (so, _) in build_library().items()}
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = libs["fused_rk4_fwd"].fused_rk4_fwd
-    fwd.argtypes = [p] * 9 + [i] * 9 + [p]
+    fwd.argtypes = [p] * 9 + [i] * 10 + [p]
     fwd.restype = i
     bwd_lib = libs["fused_rk4_bwd"]
-    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     bwd_lib.fused_rk4_bwd_grid.restype = i
-    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 11 + [p]
+    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 12 + [p]
     bwd_lib.fused_rk4_bwd.restype = i
+    vjp_lib = libs["fused_rk4_bwd_vjp"]
+    vjp_lib.fused_rk4_bwd_vjp_grid.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    vjp_lib.fused_rk4_bwd_vjp_grid.restype = i
+    vjp_lib.fused_rk4_bwd_vjp.argtypes = [p] * 17 + [i] * 15 + [p]
+    vjp_lib.fused_rk4_bwd_vjp.restype = i
     return libs
 
 
@@ -446,9 +604,20 @@ def _cidx(ctx_param_idx, dev):
             if ctx_param_idx else None)
 
 
+def _kernel_weights(pw: PackedWeights, mlp_dtype: str) -> torch.Tensor:
+    """The flat weights as the kernels read them: for 'bf16' a copy whose
+    weights (not the biases behind them) are rounded to bf16 once."""
+    if mlp_dtype == "f32":
+        return pw.flat
+    n_bias = pw.n_layers * pw.hidden + N_OUT
+    flat = pw.flat.clone()
+    flat[:-n_bias] = _bf16(flat[:-n_bias])
+    return flat
+
+
 def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
               substeps: int, ctx_param_idx: Sequence[int] = (),
-              ctx_param_mode: str = "mul") -> torch.Tensor:
+              ctx_param_mode: str = "mul", mlp_dtype: str = "f32") -> torch.Tensor:
     """Launch the forward kernel on its inputs: (T, 6, B)."""
     global fused_rk4_fwd_launches
     B = y0.shape[0]
@@ -458,13 +627,14 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     dev = y0.device
     cidx = _cidx(ctx_param_idx, dev)
     out = torch.empty((T, 6, B), dtype=torch.float32, device=dev)
+    weights = _kernel_weights(pw, mlp_dtype)
     lib = _libraries()["fused_rk4_fwd"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_rk4_fwd(
-            _ptr(y0), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t), _ptr(pw.flat),
+            _ptr(y0), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t), _ptr(weights),
             _ptr(pvec), _ptr(cidx), _ptr(out), B, T, C, pw.in_pad, pw.hidden, pw.n_layers,
-            substeps, n_cp, int(ctx_param_mode == "abs"), stream)
+            substeps, n_cp, int(ctx_param_mode == "abs"), int(mlp_dtype == "bf16"), stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_fwd launch failed: cudaError {err}")
     fused_rk4_fwd_launches += 1
@@ -473,20 +643,20 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
 
 def fused_rk4_fwd(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                   substeps: int, ctx_param_idx: Sequence[int] = (),
-                  ctx_param_mode: str = "mul") -> torch.Tensor:
+                  ctx_param_mode: str = "mul", mlp_dtype: str = "f32") -> torch.Tensor:
     """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
     if y0.device.type == "cpu":
         return _fwd_plain(y0, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
-                          ctx_param_idx, ctx_param_mode)
+                          ctx_param_idx, ctx_param_mode, mlp_dtype)
     if y0.device.type != "cuda":
         raise ValueError(f"fused_rk4_fwd runs on CUDA or CPU tensors, got {y0.device}")
     return _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
-                     ctx_param_idx, ctx_param_mode)
+                     ctx_param_idx, ctx_param_mode, mlp_dtype)
 
 
 def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
               substeps: int, ctx_param_idx: Sequence[int] = (),
-              ctx_param_mode: str = "mul"):
+              ctx_param_mode: str = "mul", mlp_dtype: str = "f32"):
     """Launch the backward kernel; returns what `_bwd_plain` returns.
 
     Each block accumulates the weight cotangents of the samples it walks
@@ -500,9 +670,10 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     dev = traj.device
     lib = _libraries()["fused_rk4_bwd"]
     H, L, in_pad = pw.hidden, pw.n_layers, pw.in_pad
+    bf16 = int(mlp_dtype == "bf16")
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = lib.fused_rk4_bwd_grid(B, C, in_pad, H, ctypes.byref(grid))
+        err = lib.fused_rk4_bwd_grid(B, C, in_pad, H, bf16, ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd_grid failed: cudaError {err}")
     n_w = pw.flat.numel()
@@ -513,13 +684,14 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     partials = empty((grid.value, n_w))
     scratch = empty((grid.value, 4 * substeps * stage))
     cidx = _cidx(ctx_param_idx, dev)
+    weights = _kernel_weights(pw, mlp_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_rk4_bwd(
             _ptr(traj), _ptr(gbar), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t),
-            _ptr(pw.flat), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dctx),
+            _ptr(weights), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dctx),
             _ptr(dflat), _ptr(partials), _ptr(scratch), B, T, C, in_pad, H, L, substeps,
-            n_cp, int(ctx_param_mode == "abs"), grid.value, n_w, stream)
+            n_cp, int(ctx_param_mode == "abs"), bf16, grid.value, n_w, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd launch failed: cudaError {err}")
     fused_rk4_bwd_launches += 1
@@ -528,15 +700,82 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
 
 def fused_rk4_bwd(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
                   substeps: int, ctx_param_idx: Sequence[int] = (),
-                  ctx_param_mode: str = "mul"):
+                  ctx_param_mode: str = "mul", mlp_dtype: str = "f32"):
     """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
     if traj.device.type == "cpu":
         return _bwd_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
-                          ctx_param_idx, ctx_param_mode)
+                          ctx_param_idx, ctx_param_mode, mlp_dtype)
     if traj.device.type != "cuda":
         raise ValueError(f"fused_rk4_bwd runs on CUDA or CPU tensors, got {traj.device}")
     return _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
-                     ctx_param_idx, ctx_param_mode)
+                     ctx_param_idx, ctx_param_mode, mlp_dtype)
+
+
+def _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+                  substeps: int, ctx_param_idx: Sequence[int] = (),
+                  ctx_param_mode: str = "mul", mlp_dtype: str = "f32",
+                  bwd_impl: str = "recompute"):
+    """Launch the second-derivation adjoint kernel; returns what
+    `_bwd_vjp_plain` returns. Weight cotangents go through per-block slices
+    of `partials` summed in block order, as in `_bwd_cuda`; for 'recompute'
+    so do the parameter cotangents, one (32,) row per block."""
+    global fused_rk4_bwd_vjp_launches
+    schedule, diff_w, diff_p, parts, fwd_passes = VJP_IMPLS[bwd_impl]
+    T, _, B = traj.shape
+    _check("traj", traj, (T, 6, B))
+    _check("gbar", gbar, (T, 6, B))
+    C, n_cp = _check_common(T, B, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, ctx_param_idx)
+    dev = traj.device
+    lib = _libraries()["fused_rk4_bwd_vjp"]
+    H, L, in_pad = pw.hidden, pw.n_layers, pw.in_pad
+    bf16 = int(mlp_dtype == "bf16")
+    recompute = schedule == "recompute"
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.fused_rk4_bwd_vjp_grid(B, C, in_pad, H, substeps, bf16, ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd_vjp_grid failed: cudaError {err}")
+    n_w = pw.flat.numel()
+    stage = (in_pad + L * H) * 32  # floats of one stage's saved features + activations
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    ybar0, dflat = empty((B, 6)), empty((n_w,))
+    dp = None if recompute else empty((N_PARAMS, B))
+    dpv, dpv_part = (empty((32,)), empty((grid.value, 32))) if recompute else (None, None)
+    dctx = empty((B, C)) if C else None
+    partials = empty((grid.value, n_w))
+    scratch = empty((grid.value, (4 if recompute else 4 * substeps) * stage))
+    cidx = _cidx(ctx_param_idx, dev)
+    weights = _kernel_weights(pw, mlp_dtype)
+    flags = (1 * diff_w + 2 * diff_p + 4 * (parts == "mech") + 8 * (parts == "mlp"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_rk4_bwd_vjp(
+            _ptr(traj), _ptr(gbar), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t),
+            _ptr(weights), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dpv),
+            _ptr(dpv_part), _ptr(dctx), _ptr(dflat), _ptr(partials), _ptr(scratch),
+            B, T, C, in_pad, H, L, substeps, n_cp, int(ctx_param_mode == "abs"), bf16,
+            grid.value, n_w, int(not recompute), flags, fwd_passes, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd_vjp launch failed: cudaError {err}")
+    fused_rk4_bwd_vjp_launches += 1
+    return ybar0, dflat, dpv if recompute else dp, dctx
+
+
+def fused_rk4_bwd_vjp(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
+                      substeps: int, ctx_param_idx: Sequence[int] = (),
+                      ctx_param_mode: str = "mul", mlp_dtype: str = "f32",
+                      bwd_impl: str = "recompute"):
+    """The second-derivation adjoint kernel on CUDA tensors, its plain
+    version on CPU tensors; `bwd_impl` is a key of VJP_IMPLS."""
+    if bwd_impl not in VJP_IMPLS:
+        raise ValueError(f"unknown bwd_impl {bwd_impl!r} for this kernel; one of {tuple(VJP_IMPLS)}")
+    if traj.device.type == "cpu":
+        return _bwd_vjp_plain(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
+                              ctx_param_idx, ctx_param_mode, mlp_dtype, bwd_impl)
+    if traj.device.type != "cuda":
+        raise ValueError(f"fused_rk4_bwd_vjp runs on CUDA or CPU tensors, got {traj.device}")
+    return _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
+                         ctx_param_idx, ctx_param_mode, mlp_dtype, bwd_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -544,30 +783,35 @@ def fused_rk4_bwd(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pv
 # ---------------------------------------------------------------------------
 
 class FusedRK4(torch.autograd.Function):
-    """Fused trajectory (B, T, 6) with the hand adjoint as its backward
+    """Fused trajectory (B, T, 6) with an adjoint kernel as its backward:
+    the hand adjoint, or for another `bwd_impl` the second derivation
     (the JAX package's `_make_fused_rk4` custom VJP, pallas_rk4.py:1016)."""
 
     @staticmethod
     def forward(ctx, y0, ts_t, meal_t, tvns_t, ctx_t, flat, pvec, layout, substeps,
-                ctx_param_idx, ctx_param_mode):
+                ctx_param_idx, ctx_param_mode, mlp_dtype="f32", bwd_impl="hand"):
         pw = _unflatten(flat, *layout)
         traj = fused_rk4_fwd(y0, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, substeps,
-                             ctx_param_idx, ctx_param_mode)
+                             ctx_param_idx, ctx_param_mode, mlp_dtype)
         ctx.save_for_backward(traj, ts_t, meal_t, tvns_t, ctx_t, flat, pvec)
-        ctx.static = (layout, substeps, ctx_param_idx, ctx_param_mode)
+        ctx.static = (layout, substeps, ctx_param_idx, ctx_param_mode, mlp_dtype, bwd_impl)
         return traj.permute(2, 0, 1).contiguous()
 
     @staticmethod
     def backward(ctx, g):
         traj, ts_t, meal_t, tvns_t, ctx_t, flat, pvec = ctx.saved_tensors
-        layout, substeps, ctx_param_idx, ctx_param_mode = ctx.static
+        layout, substeps, ctx_param_idx, ctx_param_mode, mlp_dtype, bwd_impl = ctx.static
         gbar = g.to(torch.float32).permute(1, 2, 0).contiguous()
-        ybar0, dflat, dp, dctx = fused_rk4_bwd(
-            traj, gbar, ts_t, meal_t, tvns_t, ctx_t, _unflatten(flat, *layout), pvec,
-            substeps, ctx_param_idx, ctx_param_mode)
-        dpvec = F.pad(dp.sum(1), (0, 32 - N_PARAMS))  # per-sample rows -> (32,)
+        args = (traj, gbar, ts_t, meal_t, tvns_t, ctx_t, _unflatten(flat, *layout), pvec,
+                substeps, ctx_param_idx, ctx_param_mode, mlp_dtype)
+        if bwd_impl == "hand":
+            ybar0, dflat, dp, dctx = fused_rk4_bwd(*args)
+        else:
+            ybar0, dflat, dp, dctx = fused_rk4_bwd_vjp(*args, bwd_impl)
+        # per-sample rows -> (32,); 'recompute' has summed them already
+        dpvec = dp if dp.ndim == 1 else F.pad(dp.sum(1), (0, 32 - N_PARAMS))
         dctx_t = None if dctx is None else dctx.t()
-        return ybar0, None, None, None, dctx_t, dflat, dpvec, None, None, None, None
+        return (ybar0, None, None, None, dctx_t, dflat, dpvec) + (None,) * 6
 
 
 def pack(y0, ts, meal, tvns, ode_params, nn_params, n_layers: int = 4,
@@ -590,8 +834,9 @@ def fused_rk4_hybrid(
     context_param_idx: tuple = (),
     mlp_dtype: str = "f32",
     ctx_param_mode: str = "mul",
+    bwd_impl: str = "hand",
 ) -> torch.Tensor:
-    """Differentiable fused-RK4 trajectory (B, T, 6): forward kernel, hand
+    """Differentiable fused-RK4 trajectory (B, T, 6): forward kernel, an
     adjoint kernel as its backward. Gradients reach y0, context, ode_params
     and nn_params; ts, meal and tvns are data and get none.
 
@@ -599,11 +844,20 @@ def fused_rk4_hybrid(
     linear control interpolation. `context_param_idx` (PARAM_ORDER indices)
     selects `context_mode='params'`: the context rows then act on those
     mechanistic parameters ('mul': P * e^c, 'abs': P = c) and the MLP sees
-    no context."""
-    if mlp_dtype == "bf16":
-        raise NotImplementedError("mlp_dtype='bf16' is not ported yet: ROADMAP Queue B 4")
-    if mlp_dtype != "f32":
+    no context.
+
+    mlp_dtype='bf16' rounds the operands of every MLP product, forward and
+    transposed, to bf16 with f32 accumulation (see the module docstring):
+    trajectories and gradients then agree with 'f32' to bf16 resolution.
+
+    bwd_impl: 'hand' (default) is the hand-transposed adjoint; 'recompute'
+    and 'chained' are the two schedules of the second derivation, kept to
+    check 'hand' against and to compare; the 'probe_*' values are its timing
+    decompositions and return partial gradients by design (BWD_IMPLS)."""
+    if mlp_dtype not in MLP_DTYPES:
         raise ValueError(f"unknown mlp_dtype {mlp_dtype!r}")
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"unknown bwd_impl {bwd_impl!r}; one of {BWD_IMPLS}")
     if ctx_param_mode not in ("mul", "abs"):
         raise ValueError(f"unknown ctx_param_mode {ctx_param_mode!r}")
     if substeps < 1 or n_layers < 1:
@@ -618,7 +872,7 @@ def fused_rk4_hybrid(
                                                        nn_params, n_layers, context)
     return FusedRK4.apply(y0_k, ts_t, meal_t, tvns_t, ctx_t, pw.flat, pvec,
                           (pw.in_pad, pw.hidden, pw.n_layers), substeps,
-                          tuple(context_param_idx), ctx_param_mode)
+                          tuple(context_param_idx), ctx_param_mode, mlp_dtype, bwd_impl)
 
 
 def fused_rk4_trajectory(*args, **kwargs) -> torch.Tensor:

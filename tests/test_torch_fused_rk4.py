@@ -153,14 +153,16 @@ def test_fused_options_not_ported_or_invalid_raise():
     _, p, y0, ts, meal, tvns, _ = _case("none", 2)
     args = (_t(y0), _t(ts), _t(meal), _t(tvns), params_from_numpy(p["ode"], "cpu"),
             params_from_numpy(p["nn"], "cpu"))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tfused.fused_rk4_trajectory(*args, n_layers=2, mlp_dtype="bf16")
+    with pytest.raises(ValueError, match="mlp_dtype"):
+        tfused.fused_rk4_trajectory(*args, n_layers=2, mlp_dtype="f16")
     with pytest.raises(ValueError, match="ctx_param_mode"):
         tfused.fused_rk4_trajectory(*args, n_layers=2, ctx_param_mode="add")
     with pytest.raises(ValueError, match="layers"):
         tfused.fused_rk4_trajectory(*args, n_layers=3)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tfused.fused_rk4_hybrid(*args, n_layers=2, mlp_dtype="bf16")
+    with pytest.raises(ValueError, match="bwd_impl"):
+        tfused.fused_rk4_hybrid(*args, n_layers=2, bwd_impl="adjoint")
+    assert tfused.BWD_IMPLS == ("hand", "recompute", "chained", "probe_y", "probe_yw",
+                                "probe_y_mlp", "probe_y_mech", "probe_fwd1", "probe_fwd2")
     y0g = args[0].clone().requires_grad_(True)
     assert tfused.fused_rk4_hybrid(y0g, *args[1:], n_layers=2).grad_fn is not None
     assert tfused.fused_rk4_trajectory(y0g, *args[1:], n_layers=2).grad_fn is None
