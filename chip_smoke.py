@@ -135,9 +135,12 @@ COHORT = 8192          # bench.py's cohort size
 SUBSTEPS = 4
 BWD_B = 1024           # windows of the cohort for the adjoint's kernel-vs-plain check
 BWD_SMALL_RTOL, BWD_FULL_RTOL = 1e-5, 1e-4
-# mlp_dtype='bf16', kernel against plain version (_rel_err): small case, full
-# width over BF16_SHORT_T grid points, full width over all of them
-BF16_SMALL_RTOL, BF16_SHORT_RTOL, BF16_FULL_RTOL = 1e-4, 1e-3, 0.15
+# mlp_dtype='bf16', kernel against plain version (_rel_err): small case and
+# full width over BF16_SHORT_T grid points. Over all grid points rounding edges
+# compound and no fixed limit separates a right kernel from a wrong one; there,
+# as at every size, each output must be nearer to the bf16 plain version than
+# the f32 kernel (a kernel that rounds nothing) is on the same inputs.
+BF16_SMALL_RTOL, BF16_SHORT_RTOL = 1e-4, 1e-3
 BF16_SHORT_T = 7
 PROBES = ("probe_y", "probe_yw", "probe_y_mlp", "probe_y_mech", "probe_fwd1", "probe_fwd2")
 # NVIDIA H100 SXM data sheet, 700 W: f32 outside the tensor cores, HBM3
@@ -281,7 +284,9 @@ def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False, impl
     leaves). `impl` 'hand' is fused_rk4_bwd, anything else fused_rk4_bwd_vjp.
     With `full`, a leaf that misses the limit passes if the kernel is no
     farther from the f64 plain run (`f64`, computed here when not given) than
-    the f32 plain is."""
+    the f32 plain is. With mlp_dtype 'bf16' every leaf must also be nearer to
+    the plain version than the f32 kernel's on the same inputs is, and `limit`
+    may be inf to leave that as the only rule."""
     traj, gbar = bwd_inputs(packed, T, substeps, idx, mode, mlp_dtype)
     args = (traj, gbar, *packed[1:], substeps, idx, mode, mlp_dtype)
     if impl == "hand":
@@ -291,6 +296,8 @@ def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False, impl
         plain_fn = lambda *a: fused_rk4._bwd_vjp_plain(*a, impl)  # noqa: E731
     with torch.no_grad():
         kernel = bwd_leaves(kernel_fn(*args), packed[5])
+        unrounded = (bwd_leaves(kernel_fn(*args[:-1], "f32"), packed[5])
+                     if mlp_dtype == "bf16" else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain = bwd_leaves(plain_fn(*args), packed[5])
@@ -319,6 +326,11 @@ def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False, impl
                 bad.append(name)
         elif e > limit:
             bad.append(name)
+        if unrounded is not None:
+            du = rel_err(plain[name], unrounded[name])
+            part += f" (f32 kernel {du:.2e})"
+            if not e < du and name not in bad:
+                bad.append(name)
         parts.append(part)
     print(f"bwd '{impl}' {mlp_dtype} kernel-vs-plain {label} (_rel_err limit {limit:g}): "
           + "; ".join(parts) + f" {'FAIL ' + ', '.join(bad) if bad else 'ok'}")
@@ -360,19 +372,23 @@ def check_probes(packed, T, substeps, label, idx, mode, chained):
 
 
 def compare_bf16(packed, T, substeps, label, idx, mode, limit):
-    """mlp_dtype='bf16': each of the three kernels vs its plain version;
-    returns the forward's (kernel, error to plain)."""
+    """mlp_dtype='bf16': each of the three kernels vs its plain version, within
+    `limit` and nearer than the f32 kernel on the same inputs; returns the
+    forward's (kernel, error to plain, the f32 kernel's distance to plain)."""
     with torch.no_grad():
         k = fused_rk4.fused_rk4_fwd(*packed, substeps, idx, mode, "bf16")
+        k32 = fused_rk4.fused_rk4_fwd(*packed, substeps, idx, mode, "f32")
         torch.cuda.synchronize()
-        e = rel_err(fused_rk4._fwd_plain(*packed, substeps, idx, mode, "bf16"), k)
+        plain = fused_rk4._fwd_plain(*packed, substeps, idx, mode, "bf16")
+        e, du = rel_err(plain, k), rel_err(plain, k32)
+    ok = e <= limit and e < du
     print(f"fwd bf16 kernel-vs-plain {label} (_rel_err limit {limit:g}): {e:.2e} "
-          f"{'ok' if e <= limit else 'FAIL'}")
-    if not e <= limit:
+          f"(f32 kernel {du:.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
         fail(f"bf16 forward {label}: kernel disagrees with its plain version")
     for impl in ("hand", "recompute", "chained"):
         compare_bwd(packed, T, substeps, label, idx, mode, impl=impl, mlp_dtype="bf16", limit=limit)
-    return k, e
+    return k, e, du
 
 
 def kernel_ops(nn, n_layers, hidden, B, T, substeps, n_ctx_feat=0):
@@ -553,15 +569,14 @@ def main():
              *packed_head[4:])
     compare_bf16(short, BF16_SHORT_T, SUBSTEPS, f"full width, {BF16_SHORT_T} grid points", (),
                  "mul", BF16_SHORT_RTOL)
-    bf16_traj, bf16_err = compare_bf16(packed_head, T, SUBSTEPS, full_label, (), "mul",
-                                       BF16_FULL_RTOL)
+    bf16_traj, bf16_err, bf16_unrounded = compare_bf16(packed_head, T, SUBSTEPS, full_label, (),
+                                                       "mul", float("inf"))
     bf16_dist = rel_err(full_kernel[:, :, head], bf16_traj)
     print(f"bf16 forward vs f32 forward {full_label}: _rel_err {bf16_dist:.2e}, max abs "
           f"{float((full_kernel[:, :, head] - bf16_traj).abs().max()):.3e}; the bf16 kernel is "
-          f"{bf16_err:.2e} from its plain version")
-    if not bf16_err <= bf16_dist:
-        fail("the bf16 forward kernel is farther from its plain version than bf16 is from f32")
-    report.update(bf16_fwd_kernel_vs_plain=bf16_err, bf16_fwd_vs_f32=bf16_dist)
+          f"{bf16_err:.2e} from its plain version, the f32 kernel {bf16_unrounded:.2e}")
+    report.update(bf16_fwd_kernel_vs_plain=bf16_err, bf16_fwd_vs_f32=bf16_dist,
+                  bf16_fwd_f32_kernel_vs_plain=bf16_unrounded)
 
     # 4. serving path, launch counts from 0
     fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
@@ -756,14 +771,19 @@ def main():
                            2, 20),
             "bwd": time_ms(lambda: fused_rk4.fused_rk4_bwd(
                 traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "bf16"), 2, 20)}
-    # 'recompute' runs one more forward pass per interval and returns the
-    # parameter cotangents as one (32,) row
+    # Both schedules compute the hand adjoint's function, so they share its
+    # operation count; 'recompute' returns the parameter cotangents as one (32,)
+    # row. Its second forward pass per interval is the schedule's choice, not
+    # work the function needs: it is reported apart, not in the bound.
     vjp_bound = {"chained": bound(bwd_ops, bwd_bytes),
-                 "recompute": bound(bwd_ops + fwd_ops, bwd_bytes - 4 * (17 * COHORT - 32))}
+                 "recompute": bound(bwd_ops, bwd_bytes - 4 * (17 * COHORT - 32))}
+    schedule_ops_ms = fwd_ops / PEAK_F32_FLOPS * 1e3
     print(f"timing ({smi}): second-derivation adjoint at B={COHORT}: "
           + "; ".join(f"'{i}' {vjp_ms[i]:.3f} ms (bound {vjp_bound[i][0]:.3f} ms by "
                       f"{vjp_bound[i][1]}, plain {vjp_plain_s[i] * 1e3:.3f} ms once at B={BWD_B})"
                       for i in ("recompute", "chained"))
+          + f"; 'recompute' adds one forward pass per interval, {schedule_ops_ms:.3f} ms of "
+          "operations at f32 peak, outside its bound"
           + "; probes: " + ", ".join(f"{i} {vjp_ms[i]:.3f} ms" for i in PROBES))
     decomposition = {
         "one forward pass (probe_fwd1)": vjp_ms["probe_fwd1"],
@@ -849,7 +869,7 @@ def main():
          "plain_batch": BWD_B, "bound_ms": vjp_bound["recompute"][0],
          "bound_by": vjp_bound["recompute"][1], "library_ms": None,
          "ms_chained": vjp_ms["chained"], "plain_ms_chained": vjp_plain_s["chained"] * 1e3,
-         "bound_ms_chained": vjp_bound["chained"][0]},
+         "bound_ms_chained": vjp_bound["chained"][0], "schedule_ops_ms": schedule_ops_ms},
     ]
     report.update(kernels=entries, flops={"fwd": fwd_ops, "bwd": bwd_ops},
                   bytes={"fwd": fwd_bytes, "bwd": bwd_bytes}, substeps=steps,

@@ -528,9 +528,10 @@ def amortize_encoder(
     best held-out code MSE. Stage 2 (`finetune_epochs` > 0): fine-tune the
     encoder through the frozen model on the full-window masked data loss
     (the encoder still reads only the first `points` observations), again
-    keeping the best held-out iterate, starting from stage 1's; it runs in
-    host chunks of `finetune_chunk` steps, synchronising the device between
-    chunks.
+    keeping the best held-out iterate, starting from stage 1's.
+    `finetune_chunk` is kept for the signature only and is unused: every step
+    reads its held-out loss on the host, which already paces the device, so
+    there is nothing left to chunk.
 
     `generator` (a CPU generator, default seed 0) draws the encoder's
     initial weights and the train / validation permutation; `init_encoder`
@@ -624,21 +625,15 @@ def amortize_encoder(
         opt_ft = _Adam([enc[name] for name in names], finetune_lr)
         best_ft = val0
         ft_losses = []
-        done = 0
-        while done < finetune_epochs:
-            step_n = min(finetune_chunk, finetune_epochs - done)
-            for _ in range(step_n):
-                loss = data_loss(tr_idx)
-                grads = torch.autograd.grad(loss, [enc[name] for name in names])
-                opt_ft.step([torch.nan_to_num(g) for g in grads])
-                with torch.no_grad():
-                    v = float(data_loss(val_or_tr))
-                if v < best_ft:
-                    best_enc, best_ft = snapshot(), v
-                ft_losses.append(float(loss.detach()))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            done += step_n
+        for _ in range(finetune_epochs):
+            loss = data_loss(tr_idx)
+            grads = torch.autograd.grad(loss, [enc[name] for name in names])
+            opt_ft.step([torch.nan_to_num(g) for g in grads])
+            with torch.no_grad():
+                v = float(data_loss(val_or_tr))
+            if v < best_ft:
+                best_enc, best_ft = snapshot(), v
+            ft_losses.append(float(loss.detach()))
         info["val_data_loss_distilled"] = val0
         info["val_data_loss_finetuned"] = float(best_ft)
         info["finetune_train_first"] = ft_losses[0]
