@@ -7,12 +7,16 @@ the last line:
   1. device   - require CUDA, print the card and its power limit, TF32 off
   2. build    - compile csrc/fused_rk4_fwd.cu, csrc/fused_rk4_bwd.cu and
                 csrc/fused_rk4_bwd_vjp.cu with nvcc (sm_90a), all at once;
-                ptxas registers / spills of each
+                ptxas registers / spills of each; the tile, grid, scratch and
+                partials sizes the adjoint library reports against a
+                pure-Python statement of its formula over a grid of shapes
   3. kernel   - the fused RK4 forward kernel against its plain PyTorch
                 version on the card: the accuracy checkpoint at full width on
                 a cohort of 8192 windows (T=61, substeps=4, H=128, 16 context
-                features), and three small cases (2 layers without context,
-                params 'mul', params 'abs'); tolerance rtol=atol=2e-4, the
+                features), three small cases (2 layers without context,
+                params 'mul', params 'abs'), the 'mul' case at B = 2, tile - 1
+                and tile + 1 (the library says its tile) and a case too wide
+                for the staged route (H=200); tolerance rtol=atol=2e-4, the
                 JAX suite's fused-vs-XLA tolerance
   3b. bwd     - the adjoint kernel against its plain version: the same model
                 on the cohort's first 1024 windows and the three small cases
@@ -21,7 +25,10 @@ the last line:
                 parameter gradients, dctx) by the JAX suite's _rel_err:
                 limit 1e-5 on the small cases; 1e-4 at full width, where a
                 leaf that misses it passes only if the kernel is no farther
-                from an f64 run of the plain version than the f32 plain is
+                from an f64 run of the plain version than the f32 plain is.
+                The edge and wide cases of phase 3 as small cases too; the
+                hand adjoint twice on the same full-width inputs is bitwise
+                equal
   3c. vjp     - the second-derivation adjoint kernel ('recompute' and
                 'chained') against its plain version (transposes from torch
                 autograd) on the same inputs and with 3b's limits; on the
@@ -32,12 +39,13 @@ the last line:
                 the same inputs is bitwise equal
   3d. bf16    - mlp_dtype='bf16': the three kernels against their plain
                 versions on the 'mul' small case (limit 1e-4), at full width
-                over the first 7 grid points (limit 1e-3) and over all 61
-                (limit 0.15, and the forward no farther from its plain
-                version than bf16 is from f32: two bf16 runs that sum in
-                another order put operands on the other side of a rounding
-                edge, 2^-8 of the operand each time, and 240 RK4 steps
-                compound that); the distance of the bf16 forward from f32
+                over the first 7 grid points (limit 1e-3) and over all 61 (no
+                fixed limit: two bf16 runs that sum in another order put
+                operands on the other side of a rounding edge, 2^-8 of the
+                operand each time, and 240 RK4 steps compound that). At every
+                size each output must be nearer to the bf16 plain version
+                than the f32 kernel's output on the same inputs is; the
+                distance of the bf16 forward from f32 is printed
   4. main     - the serving path with every launch count at 0: evaluate the
                 checkpoint (use_pallas) on the seed-42 test split against the
                 JAX package's CPU metrics, then simulate the 8192 cohort with
@@ -70,7 +78,8 @@ the last line:
                 hand adjoint; identify_context per step at the test split's
                 and the cohort's size; then one cohort train step under
                 torch.profiler: device time per kernel and the device's busy
-                share of the step
+                share of the step; the SM clock and power draw nvidia-smi
+                reads while the two redesigned kernels are timed
 Then one JSON line with the three kernels, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -142,6 +151,9 @@ BWD_SMALL_RTOL, BWD_FULL_RTOL = 1e-5, 1e-4
 # the f32 kernel (a kernel that rounds nothing) is on the same inputs.
 BF16_SMALL_RTOL, BF16_SHORT_RTOL = 1e-4, 1e-3
 BF16_SHORT_T = 7
+# the two kernels' times before their redesign for Hopper, at the cohort shape
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+PREVIOUS_MS = {"fused_rk4_fwd": 68.289, "fused_rk4_bwd": 205.865}
 PROBES = ("probe_y", "probe_yw", "probe_y_mlp", "probe_y_mech", "probe_fwd1", "probe_fwd2")
 # NVIDIA H100 SXM data sheet, 700 W: f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -211,10 +223,10 @@ def random_mlp(rng, in_dim, hidden, n_layers, device):
     return params_from_numpy(nn, device)
 
 
-def small_case(name, ode, device, n_layers, mode):
+def small_case(name, ode, device, n_layers, mode, B=1000, hidden=64):
     """A small random-weight case for one kernel option."""
-    rng = np.random.default_rng({"layers2": 1, "mul": 2, "abs": 3}[name])
-    B, T = 1000, 13  # B not a multiple of the block's tile: exercises masking
+    rng = np.random.default_rng({"layers2": 1, "mul": 2, "abs": 3}.get(name, 4))
+    T = 13  # B = 1000 is not a multiple of the block's tile: exercises masking
     y0 = (0.5 * rng.normal(size=(B, 6))).astype(np.float32)  # z-scored states
     ts = np.cumsum(rng.uniform(0.05, 0.15, (B, T)), 1).astype(np.float32)
     meal = np.where(rng.uniform(size=(B, T)) > 0.7, 1.0, 0.0).astype(np.float32)
@@ -230,7 +242,7 @@ def small_case(name, ode, device, n_layers, mode):
             ctx = (base * (1 + 0.2 * rng.normal(size=(B, 3)))).astype(np.float32)
     t = lambda x: None if x is None else torch.as_tensor(x, device=device)  # noqa: E731
     packed = fused_rk4.pack(t(y0), t(ts), t(meal), t(tvns), ode,
-                            random_mlp(rng, 9, 64, n_layers, device), n_layers, t(ctx))
+                            random_mlp(rng, 9, hidden, n_layers, device), n_layers, t(ctx))
     return packed, idx, mode or "mul"
 
 
@@ -470,6 +482,43 @@ def bench_train_batch(device):
                                                       "tVNS": t(np.zeros_like(meal))}}
 
 
+def expected_bwd_sizes(B, in_pad, H, L, substeps, tile):
+    """The hand adjoint's launch sizes from its formulas: (tiles, scratch floats
+    per block, partials floats per block). Per stage a block saves in_pad +
+    L*H rows of inputs and L*H + 8 rows of output cotangents, `tile` floats
+    each, and one ReLU-mask word per thread tile (rows of 8 when that gives
+    all 256 threads a tile, else of 4, by tile / 4 sample quads) and layer."""
+    stages = 4 * substeps
+    rt = 8 if (H // 8) * (tile // 4) >= 256 else 4
+    mask_words = -(-H // rt) * (tile // 4)
+    scratch = stages * tile * ((in_pad + L * H) + (L * H + 8)) + stages * L * mask_words
+    partials = in_pad * H + (L - 1) * H * H + H * 8 + L * H + 8
+    return -(-B // tile), scratch, partials
+
+
+class ClockSampler:
+    """nvidia-smi's SM clock and power draw, sampled every 100 ms while a
+    block of code runs; `median()` afterwards."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = [ln.split(",") for ln in out.splitlines() if ln.count(",") == 1]
+        self.samples = [(float(a), float(b)) for a, b in rows]
+
+    def median(self):
+        if not self.samples:
+            fail("nvidia-smi gave no clock sample")
+        return (statistics.median(s[0] for s in self.samples),
+                statistics.median(s[1] for s in self.samples), len(self.samples))
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -497,6 +546,22 @@ def main():
         print(f"build: {so.name}: " + " | ".join(ptxas[stem]))
     print(f"build: {len(built)} libraries in {build_s:.1f} s")
     report.update(build_s=build_s, ptxas=ptxas)
+    tile = fused_rk4.fwd_tile()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_shapes = 0
+    for B in (1, 2, tile - 1, tile + 1, 1000, COHORT, 40000):
+        for C, in_pad, H, L, substeps in ((0, 16, 64, 2, 2), (16, 32, 128, 4, 4), (3, 16, 128, 4, 1),
+                                          (0, 16, 200, 2, 2), (5, 16, 132, 3, 3), (0, 16, 8, 1, 1)):
+            got = fused_rk4.bwd_sizes(B, C, in_pad, H, L, substeps)
+            tiles, *want = expected_bwd_sizes(B, in_pad, H, L, substeps, got.tile)
+            # one block per tile, or every SM's resident blocks when there are more tiles
+            grid_ok = got.grid == tiles or (got.grid < tiles and got.grid % sms == 0)
+            if got.tile != tile or not grid_ok or [got.scratch, got.partials] != want:
+                fail(f"adjoint sizes for B={B} C={C} in_pad={in_pad} H={H} L={L} substeps="
+                     f"{substeps}: library {got}, formula {tiles} tiles, {want}")
+            n_shapes += 1
+    print(f"sizes: tile {tile}; the adjoint library's grid, scratch and partials sizes equal "
+          f"the formula's on {n_shapes} shapes ({sms} SMs) ok")
 
     # 3. kernel vs plain
     state, meta = load_checkpoint(str(CKPT))
@@ -524,6 +589,22 @@ def main():
         k = fused_rk4.fused_rk4_fwd(*p, 2, idx, m)
         torch.cuda.synchronize()
         max_abs[name] = compare(k, fused_rk4._fwd_plain(*p, 2, idx, m), f"small {name}")
+    # across the tile's edge, one block alone, and the route for widths whose
+    # layers do not fit in shared memory
+    edge = {f"B{B}": small_case(f"B{B}", params["ode"], device, 4, "mul", B=B)
+            for B in (2, tile - 1, tile + 1)}
+    edge["wide"] = small_case("wide", params["ode"], device, 2, "mul", B=100, hidden=200)
+    for name, (p, idx, m) in edge.items():
+        k = fused_rk4.fused_rk4_fwd(*p, 2, idx, m)
+        torch.cuda.synchronize()
+        max_abs[name] = compare(k, fused_rk4._fwd_plain(*p, 2, idx, m), f"small {name}")
+    routes = {"cohort": fused_rk4.bwd_sizes(COHORT, C, packed[5].in_pad, packed[5].hidden,
+                                            config.nn_layers, SUBSTEPS).staged,
+              "wide": fused_rk4.bwd_sizes(100, 3, 16, 200, 2, 2).staged}
+    print(f"routes: weights staged through shared memory at the cohort's widths: "
+          f"{routes['cohort']}; at H=200: {routes['wide']}")
+    if not routes["cohort"] or routes["wide"]:
+        fail("the cohort's widths must take the staged route and H=200 the other")
     report["max_abs_err"] = max_abs
 
     # 3b. adjoint kernel vs plain
@@ -534,8 +615,17 @@ def main():
     bwd_abs, bwd_plain_s, _, f64 = compare_bwd(packed_head, T, SUBSTEPS, full_label, full=True)
     bwd_max_abs = {"full": bwd_abs}
     hand_small = {}
-    for name, (p, idx, m) in small.items():
+    for name, (p, idx, m) in {**small, **edge}.items():
         bwd_max_abs[name], _, hand_small[name], _ = compare_bwd(p, 13, 2, f"small {name}", idx, m)
+    # block g owns its slice of the partials and the slices are added in block
+    # order: the same inputs must give the same bits
+    traj_head, gbar_head = bwd_inputs(packed_head, T, SUBSTEPS)
+    twice = [fused_rk4.fused_rk4_bwd(traj_head, gbar_head, *packed_head[1:], SUBSTEPS)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*twice)):
+        fail("the hand adjoint gave different outputs on the same inputs")
+    print("hand adjoint twice on the same full-width inputs: every output bitwise equal ok")
     report["bwd_max_abs_err"] = bwd_max_abs
 
     # 3c. second-derivation adjoint kernel vs plain, vs 'hand', probes
@@ -543,7 +633,7 @@ def main():
     for impl in ("recompute", "chained"):
         vjp_max_abs[f"full_{impl}"], vjp_plain_s[impl], full_leaves, _ = compare_bwd(
             packed_head, T, SUBSTEPS, full_label, full=True, impl=impl, f64=f64)
-        for name, (p, idx, m) in small.items():
+        for name, (p, idx, m) in {**small, **edge}.items():
             vjp_max_abs[f"{name}_{impl}"], _, leaves, _ = compare_bwd(
                 p, 13, 2, f"small {name}", idx, m, impl=impl)
             if impl == "recompute":
@@ -553,7 +643,6 @@ def main():
                 check_probes(p, 13, 2, "small mul", idx, m, leaves)
     check_probes(packed_head, T, SUBSTEPS, "full width", (), "mul", full_leaves)
     # 'recompute' reduces the parameter cotangents inside the block: order-fixed?
-    traj_head, gbar_head = bwd_inputs(packed_head, T, SUBSTEPS)
     twice = [fused_rk4.fused_rk4_bwd_vjp(traj_head, gbar_head, *packed_head[1:], SUBSTEPS, (),
                                          "mul", "f32", "recompute") for _ in range(2)]
     torch.cuda.synchronize()
@@ -739,11 +828,13 @@ def main():
 
     # 5. timing
     with torch.no_grad():
-        ms = time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS), 3, 20)
-        plain_ms = time_ms(lambda: fused_rk4._fwd_plain(*packed, SUBSTEPS), 1, 10)
         traj_full, gbar_full = bwd_inputs(packed, T, SUBSTEPS)
-        bwd_ms = time_ms(lambda: fused_rk4.fused_rk4_bwd(traj_full, gbar_full, *packed[1:],
-                                                         SUBSTEPS), 2, 20)
+        with ClockSampler() as clocks:
+            ms = time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS), 3, 20)
+            bwd_ms = time_ms(lambda: fused_rk4.fused_rk4_bwd(traj_full, gbar_full, *packed[1:],
+                                                             SUBSTEPS), 2, 20)
+        plain_ms = time_ms(lambda: fused_rk4._fwd_plain(*packed, SUBSTEPS), 1, 10)
+    sm_mhz, watts, n_samples = clocks.median()
     nn = params["nn"]
     steps = COHORT * (T - 1) * SUBSTEPS
     fwd_ops, bwd_ops = kernel_ops(nn, config.nn_layers, config.nn_hidden, COHORT, T, SUBSTEPS, C)
@@ -759,6 +850,11 @@ def main():
     print(f"timing ({smi}): bwd kernel {bwd_ms:.3f} ms at B={COHORT}; plain "
           f"{bwd_plain_s * 1e3:.3f} ms once at B={BWD_B}; bound {bwd_bound_ms:.3f} ms "
           f"({bwd_ops:.4e} FLOP at f32 peak; {bwd_bytes} B = {bwd_t_bytes:.4f} ms at HBM peak)")
+    print(f"timing ({smi}): share of bound fwd {100 * bound_ms / ms:.1f}% bwd "
+          f"{100 * bwd_bound_ms / bwd_ms:.1f}%; before the redesign fwd "
+          f"{PREVIOUS_MS['fused_rk4_fwd']} ms bwd {PREVIOUS_MS['fused_rk4_bwd']} ms; while both were "
+          f"timed nvidia-smi read a median SM clock of {sm_mhz:.0f} MHz and {watts:.0f} W over "
+          f"{n_samples} samples (the 67 TFLOP/s peak is 132 SMs x 128 FMA at 1980 MHz)")
 
     # the second-derivation kernel, its probes and what they decompose
     vjp_ms = {}
@@ -852,7 +948,8 @@ def main():
          "launches": launches + train_launches[0] + id_launches[0],
          "max_abs_err": max(max_abs.values()),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None, "ms_bf16": bf16_ms["fwd"]},
+         "library_ms": None, "ms_bf16": bf16_ms["fwd"],
+         "previous_ms": PREVIOUS_MS["fused_rk4_fwd"]},
         {"name": "fused_rk4_bwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:414",
@@ -860,7 +957,7 @@ def main():
          "max_abs_err": max(bwd_max_abs.values()),
          "ms": bwd_ms, "plain_ms": bwd_plain_s * 1e3, "plain_batch": BWD_B,
          "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,
-         "ms_bf16": bf16_ms["bwd"]},
+         "ms_bf16": bf16_ms["bwd"], "previous_ms": PREVIOUS_MS["fused_rk4_bwd"]},
         {"name": "fused_rk4_bwd_vjp", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd_vjp.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:692",
@@ -875,7 +972,9 @@ def main():
                   bytes={"fwd": fwd_bytes, "bwd": bwd_bytes}, substeps=steps,
                   train_step_ms={"H128_C16": step_ms, "H64": step64_ms},
                   train_step_bound_ms=train_bounds, vjp_ms=vjp_ms, bf16_ms=bf16_ms,
-                  decomposition_ms=decomposition, identify_step_ms=id_ms)
+                  decomposition_ms=decomposition, identify_step_ms=id_ms,
+                  clocks={"sm_mhz": sm_mhz, "watts": watts, "samples": n_samples},
+                  tile=tile, routes=routes)
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1, default=float))
     print(json.dumps({"kernels": entries}))

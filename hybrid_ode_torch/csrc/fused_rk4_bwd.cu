@@ -12,46 +12,71 @@
 //   dctx (B, C)      context cotangents (feature mode: through the MLP
 //                    input; params mode: the closed-form 'mul' / 'abs' fold).
 //
-// Per interval i = T-2 .. 0 a block runs ONE forward pass from traj[i] that
-// saves every stage's MLP input X and post-ReLU activations, then walks the
-// substeps backwards transposing stages 4, 3, 2, 1: the MLP transpose
-// (ReLU mask acts > 0) and the hand-derived mechanistic Jacobian-transpose.
-// The forward pass is fused_rk4_fwd.cu's stage evaluation
-// (fused_rk4_common.cuh), so the states it rebuilds are the ones the forward
-// took.
+// Per interval i = T-2 .. 0 a block runs three phases on its 64-sample tile:
+//   1. one forward pass from traj[i] that saves every stage's MLP input X,
+//      post-ReLU activations and ReLU masks;
+//   2. the reverse sweep, substeps backwards and stages 4, 3, 2, 1: the MLP
+//      transpose (masked by the saved bits) and the hand-derived mechanistic
+//      Jacobian-transpose, saving every layer's output cotangent;
+//   3. the weight and bias cotangents of the whole interval, one product per
+//      layer that contracts over all 4 * substeps stages x 64 samples.
+// The forward pass takes fused_rk4_fwd.cu's products (fused_rk4_wide.cuh) and
+// fused_rk4_common.cuh's `mech`, so the states it rebuilds are the ones the
+// forward took: pre-activations are accumulated k ascending by fmaf, then the
+// bias, then the ReLU, in all three kernels.
 //
 // What bounds it on an H100: arithmetic. Per stage evaluation the MLP is
 // done three times (recompute, weight cotangent, input cotangent): at the
 // cohort shape (B = 8192, T = 61, substeps = 4, H = 128, 16 context
 // features) about 2.5e12 FLOP, 38 ms at the 67 TFLOP/s f32 CUDA-core peak,
-// against about 30 MB of inputs and outputs.
+// against about 30 MB of inputs and outputs. f32 products stay on the CUDA
+// cores.
 //
-// Design, and what it does about the TPU kernel's assumptions:
-//   * Weight cotangents. On the TPU every grid step adds into one resident
-//     output. Here blocks run in no order, so block g accumulates into its
+// Design:
+//   * Weight cotangents, batched per interval. Phases 1 and 2 write the
+//     operands to the block's slice of global `scratch` as they write them
+//     to shared memory, [row][sample] (whole 256-byte rows per half warp):
+//     per stage A holds X and the L activations (in_pad + L*H rows), G each
+//     layer's masked output cotangent and the residual's (L*H + 8 rows).
+//     Phase 3 streams both through shared memory in chunks of columns
+//     (cp.async, two buffers, the next chunk arriving while this one
+//     multiplies) and computes dW_l += A_l G_l^T with an 8 x 8 register tile
+//     per thread (4 x 4 for layers that would leave threads without a tile),
+//     contracting over all 4 * substeps * 64 columns. Operands are read as
+//     float4 along the columns, 16 loads per 256 FMA; rows are padded by four
+//     floats so that the lanes' rows fall on different banks. The block's
+//     slice of `partials` is read and written once per interval and layer,
+//     not once per stage.
+//   * Across blocks: blocks run in no order, so block g accumulates into its
 //     own slice partials[g] (the packed weight layout) with plain
-//     read-modify-writes: no other block touches it, so no atomics.
-//     `sum_rows` (fused_rk4_common.cuh) then adds the slices in block order, so gradients do
-//     not depend on scheduling. The read-modify-write happens once per
-//     stage (simple, about 217 KB each way per stage and block at H = 128);
-//     batching it per interval is left to a later version.
-//   * Saved activations (in_pad + L*H floats per sample and stage, 1.1 MB
-//     per interval for a 32-sample tile) do not fit in shared memory. They
-//     go to a per-block slice of global `scratch` and are read back in the
-//     reverse sweep, mostly from L2.
-//   * The grid is the number of blocks that can be resident at once, at
-//     most one per 32-sample tile; block g walks tiles g, g + gridDim.x, ...
-//     so `partials` holds one slice per resident block, not per tile.
-//   * Thread tid < TILE owns one sample: its RK4 cotangents live in
+//     read-modify-writes; every element always belongs to the same thread.
+//     `sum_rows` (fused_rk4_common.cuh) then adds the slices in block order.
+//     No atomics anywhere: two launches on the same inputs give bitwise
+//     equal outputs.
+//   * The grid is the number of blocks that can be resident at once (one
+//     per SM: 132 slices of 217 KB stay in L2), at most one per tile; block g
+//     walks tiles g, g + gridDim.x, ...
+//   * MLP weights come from shared memory, one layer at a time through the
+//     same two buffers (fused_rk4_wide.cuh), for the forward products and,
+//     from a transposed copy the caller appends to the packed weights
+//     (layer l as (out, in) row-major), for the transposed ones: the input
+//     cotangent u = W g is then the forward product's loop on W^T, with the
+//     same conflict-free reads. Route `staged`: taken when two layers fit
+//     beside the activations (H <= 128 at the usual widths). Otherwise the
+//     products read both copies from global memory and phase 3 stages its
+//     chunks through what shared memory is left (H up to about 380).
+//   * ReLU masks are 32 bits per thread tile, written in phase 1 by the
+//     thread that reads them in phase 2 (both products have the layer's
+//     width, hence the same tiling), so phase 2 waits on one word, loaded
+//     before the product, not on the activations.
+//   * Thread tid < WTILE owns one sample: its RK4 cotangents live in
 //     registers; its parameters, parameter cotangents, stage-state
 //     cotangents and feature-mode context cotangents in shared memory.
-//   * Each dense transpose is register-tiled like the forward (4 rows x 4
-//     samples per thread, float4 loads of weights and activations).
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): both
 // operands of every product, forward and transposed, are rounded to bf16 at
-// the load (`wpack` arrives rounded); sums, bias cotangents, masks and every
-// accumulator stay f32. The f32 instantiation is the code without it.
+// the load (both weight copies arrive rounded); sums, bias cotangents, masks
+// and every accumulator stay f32. The f32 instantiation is the code without it.
 //
 // Built with -fmad=false (hybrid_ode_torch/ops/fused_rk4.py): the matmul
 // loops use explicit fmaf; everything else rounds after each operation, as
@@ -61,105 +86,106 @@
 // Interface: plain C functions taking device pointers and the stream, loaded
 // with ctypes (hybrid_ode_torch/ops/fused_rk4.py). They return cudaError_t.
 
-#include "fused_rk4_common.cuh"
+#include "fused_rk4_wide.cuh"
 
 namespace {
 
 using namespace fused_rk4;
 
-// out[k][s] = (sum_n W[k][n] * g[n][s]) * (mask[k][s] > 0 ? 1 : 0) for
-// k < K, s < TILE (no mask factor when mask is null). W is (K, N) row-major:
-// the transpose of the forward product, u = W g. BF16: g is read rounded.
-template <bool BF16>
-__device__ __forceinline__ void dense_t(const float* __restrict__ W,
-                                        const float* g, float* out,
-                                        const float* mask, int K, int N) {
-  const int sq = threadIdx.x % SQ;
-  const int n4 = N / 4;
-  const float4* g4 = reinterpret_cast<const float4*>(g) + sq;
-  for (int rq = threadIdx.x / SQ; rq < K / 4; rq += NTHREADS / SQ) {
-    const float4* w4 = reinterpret_cast<const float4*>(W) + 4 * rq * n4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int nq = 0; nq < n4; ++nq) {
-      float wv[4][4], gv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 w = __ldg(w4 + i * n4 + nq);  // W[4rq+i][4nq .. 4nq+3]
-        wv[i][0] = w.x; wv[i][1] = w.y; wv[i][2] = w.z; wv[i][3] = w.w;
-        const float4 a = g4[(4 * nq + i) * SQ];     // g[4nq+i][4sq .. 4sq+3]
-        gv[i][0] = operand<BF16>(a.x); gv[i][1] = operand<BF16>(a.y);
-        gv[i][2] = operand<BF16>(a.z); gv[i][3] = operand<BF16>(a.w);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) acc[i][s] = fmaf(wv[i][jj], gv[jj][s], acc[i][s]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = (4 * rq + i) * SQ + sq;
-      float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
-      if (mask) {
-        const float4 m = reinterpret_cast<const float4*>(mask)[idx];
-        v[0] *= m.x > 0.f ? 1.f : 0.f;
-        v[1] *= m.y > 0.f ? 1.f : 0.f;
-        v[2] *= m.z > 0.f ? 1.f : 0.f;
-        v[3] *= m.w > 0.f ? 1.f : 0.f;
-      }
-      reinterpret_cast<float4*>(out)[idx] = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
+constexpr int OUTER_UNROLL = 2;  // column quads per trip of outer_w's loop (1: 2% slower)
 
-// D[k][n] += sum_s A[k][s] * G[n][s] for k < K, n < N (D row-major (K, N)),
-// and Db[n] += sum_s G[n][s]. Element (k, n) is always updated by the same
-// thread, so successive calls on one D need no barrier between them.
-// BF16: A and G are read rounded for the product; the bias sum takes G as it is.
-template <bool BF16>
-__device__ __forceinline__ void outer_acc(float* D, float* Db, const float* A,
-                                          const float* G, int K, int N) {
-  const int n4 = N / 4;
-  for (int it = threadIdx.x; it < (K / 4) * n4; it += NTHREADS) {
-    const int kq = it / n4, nq = it % n4;
-    float4* d4 = reinterpret_cast<float4*>(D) + 4 * kq * n4 + nq;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 d = d4[i * n4];
-      acc[i][0] = d.x; acc[i][1] = d.y; acc[i][2] = d.z; acc[i][3] = d.w;
+// D[k][n] += sum_col A[k][col] * G[n][col] for k < K, n < N (D row-major
+// (K, N)) and Db[n] += sum_col G[n][col], over the WTILE columns of each of
+// n_stages stages. A and G are global, [stage][rows][WTILE] with rows_a /
+// rows_g rows per stage, and pass through the ring in chunks of cc columns,
+// rows padded to cc + 4 floats so that consecutive rows start four banks
+// apart. A thread owns rows k0 .. k0 + TK of A (the lanes that share them
+// read one address) and rows tn, tn + N / TN, ... of G (consecutive lanes,
+// consecutive rows: no bank conflict), i.e. a TK x TN tile of D in registers
+// for the whole contraction, read as float4 along the columns. Element
+// (k, n) and Db[n] always belong to the same thread, and columns are added
+// in ascending order.
+// BF16: both operands are read rounded for the product; Db takes G as it is.
+template <bool BF16, int TK, int TN>
+__device__ __forceinline__ void outer_w(float* D, float* Db, const float* A, int rows_a,
+                                        const float* G, int rows_g, int n_stages, int K, int N,
+                                        Ring& ring) {
+  const int tid = threadIdx.x;
+  const int tiles_n = N / TN, tiles = (K / TK) * tiles_n;
+  int cc = WTILE;  // columns per chunk: the most that fit a ring buffer
+  while (cc > 4 && (K + N) * (cc + 4) > ring.cap) cc /= 2;
+  const int ld = cc + 4, ld4 = ld / 4, c4n = cc / 4;
+  const int per_stage = WTILE / cc, n_chunks = n_stages * per_stage;
+  auto load = [&](int ch) {
+    float* a_dst = ring.incoming();
+    float* g_dst = a_dst + K * ld;
+    const size_t st = ch / per_stage;
+    const int c0 = (ch % per_stage) * cc;
+    const float* a_src = A + st * rows_a * WTILE + c0;
+    const float* g_src = G + st * rows_g * WTILE + c0;
+    for (int i = tid; i < K * c4n; i += NTHREADS) {
+      const int r = i / c4n, q = i % c4n;
+      __pipeline_memcpy_async(a_dst + r * ld + 4 * q, a_src + r * WTILE + 4 * q, 16);
     }
-    for (int sq = 0; sq < SQ; ++sq) {
-      float av[4][4], gv[4][4];
+    for (int i = tid; i < N * c4n; i += NTHREADS) {
+      const int r = i / c4n, q = i % c4n;
+      __pipeline_memcpy_async(g_dst + r * ld + 4 * q, g_src + r * WTILE + 4 * q, 16);
+    }
+    ring.commit();
+  };
+  for (int t0 = 0; t0 < tiles; t0 += NTHREADS) {
+    const int t = t0 + tid;
+    const bool active = t < tiles;
+    const int k0 = active ? (t / tiles_n) * TK : 0, tn = active ? t % tiles_n : 0;
+    float acc[TK][TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 a = reinterpret_cast<const float4*>(A)[(4 * kq + i) * SQ + sq];
-        av[i][0] = operand<BF16>(a.x); av[i][1] = operand<BF16>(a.y);
-        av[i][2] = operand<BF16>(a.z); av[i][3] = operand<BF16>(a.w);
-        const float4 g = reinterpret_cast<const float4*>(G)[(4 * nq + i) * SQ + sq];
-        gv[i][0] = operand<BF16>(g.x); gv[i][1] = operand<BF16>(g.y);
-        gv[i][2] = operand<BF16>(g.z); gv[i][3] = operand<BF16>(g.w);
+    for (int i = 0; i < TK; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    load(0);
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const float* As = ring.arrive();
+      const float* Gs = As + K * ld;
+      if (ch + 1 < n_chunks) load(ch + 1);
+      if (active) {
+        const float4* a4 = reinterpret_cast<const float4*>(As + k0 * ld);
+        const float4* g4 = reinterpret_cast<const float4*>(Gs + tn * ld);
+#pragma unroll OUTER_UNROLL
+        for (int c4 = 0; c4 < c4n; ++c4) {
+          float av[TK][4], gv[TN][4];
+#pragma unroll
+          for (int i = 0; i < TK; ++i) {
+            const float4 a = a4[i * ld4 + c4];
+            av[i][0] = operand<BF16>(a.x); av[i][1] = operand<BF16>(a.y);
+            av[i][2] = operand<BF16>(a.z); av[i][3] = operand<BF16>(a.w);
+          }
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const float4 g = g4[j * tiles_n * ld4 + c4];
+            gv[j][0] = operand<BF16>(g.x); gv[j][1] = operand<BF16>(g.y);
+            gv[j][2] = operand<BF16>(g.z); gv[j][3] = operand<BF16>(g.w);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int i = 0; i < TK; ++i)
+#pragma unroll
+              for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i][c], gv[j][c], acc[i][j]);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) acc[i][j] = fmaf(av[i][s], gv[j][s], acc[i][j]);
+      if (t0 == 0)
+        for (int nn = tid; nn < N; nn += NTHREADS) {
+          float sum = 0.f;
+          for (int c = 0; c < cc; ++c) sum += Gs[nn * ld + c];
+          Db[nn] += sum;
+        }
     }
+    if (active) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      d4[i * n4] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-  for (int n = threadIdx.x; n < N; n += NTHREADS) {
-    float s = 0.f;
-    for (int j = 0; j < TILE; ++j) s += G[n * TILE + j];
-    Db[n] += s;
+      for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) D[(size_t)(k0 + i) * N + tn + j * tiles_n] += acc[i][j];
+    }
   }
 }
 
@@ -200,61 +226,103 @@ __device__ __forceinline__ void mech_t(float G, float I, float Glu, float GLP1,
   dP[P_9 * stride] += gFFA * G * FFA;
 }
 
-size_t smem_bytes(int C, int in_pad, int H) {
-  // X, dX [in_pad]; Ha, Hb [H]; R [NOUT]; P, dP [NP]; dY [4][NS]; dctx [C]
-  return sizeof(float) * (size_t)(2 * in_pad + 2 * H + NOUT + 2 * NP + 4 * NS + C) * TILE;
+// What a launch needs besides its arguments, from the widths alone.
+struct Layout {
+  size_t smem;          // bytes of dynamic shared memory
+  int cap;              // floats of one ring buffer
+  int staged;           // weights through shared memory
+  int rt;               // rows per thread tile of an H-wide product
+  int mask_words;       // ReLU-mask words per stage and layer
+  long long scratch;    // floats of a block's scratch slice
+};
+
+// 0 when the widths fit a block's shared memory.
+int bwd_layout(int C, int in_pad, int H, int L, int substeps, Layout* lay) {
+  // X [in_pad]; Ha [H]; Hb [max(H, in_pad)]; R [NOUT]; P, dP [NP]; dY [4][NS]; dctx [C]
+  const size_t acts = sizeof(float) * WTILE *
+      (size_t)(in_pad + H + (H > in_pad ? H : in_pad) + NOUT + 2 * NP + 4 * NS + C);
+  if (acts >= (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int wcap = max_layer_floats(in_pad, H, L);
+  const size_t left = (size_t)SMEM_LIMIT - acts;
+  // phase 3 stages K + N rows of at least 4 columns, padded by 4
+  const int chunk = 8 * ((in_pad > H ? in_pad : H) + H);
+  const int want = wcap > chunk ? wcap : chunk;
+  lay->staged = 2 * sizeof(float) * (size_t)want <= left;
+  // unstaged: the ring only stages phase 3's chunks, in what is left
+  lay->cap = lay->staged ? want : (int)(left / (2 * sizeof(float)) / 4 * 4);
+  if (!lay->staged && lay->cap > 5 * chunk) lay->cap = 5 * chunk;  // 32 padded columns; the rest stays L1
+  if (lay->cap < chunk) return (int)cudaErrorInvalidValue;
+  lay->smem = acts + 2 * sizeof(float) * (size_t)lay->cap;
+  lay->rt = (H / 8) * WSQ >= NTHREADS ? 8 : 4;
+  lay->mask_words = ((H + lay->rt - 1) / lay->rt) * WSQ;
+  const long long cols = 4LL * substeps * WTILE;
+  lay->scratch = cols * (in_pad + L * H) + cols * (L * H + NOUT) +
+                 4LL * substeps * L * lay->mask_words;
+  return 0;
 }
 
-// BF16: mlp_dtype='bf16', see fused_rk4_common.cuh.
-template <bool BF16>
-__global__ void __launch_bounds__(NTHREADS)
+// BF16: mlp_dtype='bf16'; RT: rows per thread tile of an H-wide product;
+// STAGED: MLP weights through shared memory (fused_rk4_wide.cuh).
+template <bool BF16, int RT, bool STAGED>
+__global__ void __launch_bounds__(NTHREADS, 1)
 fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
                      const float* __restrict__ gbar,  // (T, 6, B)
                      const float* __restrict__ ts,    // (T, B)
                      const float* __restrict__ meal,  // (T, B)
                      const float* __restrict__ tvns,  // (T, B)
                      const float* __restrict__ ctx,   // (C, B) or null
-                     const float* __restrict__ wpack, // weights then biases
+                     const float* __restrict__ wpack, // weights, biases, transposed weights
                      const float* __restrict__ pvec,  // (32,) PARAM_ORDER
                      const int* __restrict__ cidx,    // (n_cp,) or null
                      float* __restrict__ ybar0,       // (B, 6)
                      float* __restrict__ dp_out,      // (17, B)
                      float* __restrict__ dctx_out,    // (B, C) or null
                      float* __restrict__ partials,    // (gridDim.x, n_w)
-                     float* __restrict__ scratch,     // (gridDim.x, 4 * substeps * stage)
+                     float* __restrict__ scratch,     // (gridDim.x, scratch_floats)
                      int B, int T, int C, int in_pad, int H, int n_layers,
-                     int substeps, int n_cp, int abs_mode, int n_w) {
+                     int substeps, int n_cp, int abs_mode, int n_w, int cap,
+                     int mask_words, long long scratch_floats) {
   extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);  // [in_pad][TILE] forward features
-  float* dX = X + in_pad * TILE;               // [in_pad][TILE] their cotangent
-  float* Ha = dX + in_pad * TILE;              // [H][TILE]
-  float* Hb = Ha + H * TILE;                   // [H][TILE]
-  float* R = Hb + H * TILE;                    // [NOUT][TILE] residual / stage cotangent
-  float* Ps = R + NOUT * TILE;                 // [NP][TILE] effective parameters
-  float* dPs = Ps + NP * TILE;                 // [NP][TILE] their cotangents
-  float* dYs = dPs + NP * TILE;                // [4][NS][TILE] stage-state cotangents
-  float* dCs = dYs + 4 * NS * TILE;            // [C][TILE] feature-mode context cotangent
+  float* X = reinterpret_cast<float*>(smem4);  // [in_pad][WTILE] forward features
+  float* Ha = X + in_pad * WTILE;              // [H][WTILE]
+  float* Hb = Ha + H * WTILE;                  // [max(H, in_pad)][WTILE]
+  // the features' cotangent: the last transposed product reads Ha, so Hb is free
+  float* dX = Hb;                              // [in_pad][WTILE]
+  float* R = Hb + (H > in_pad ? H : in_pad) * WTILE;  // [NOUT][WTILE] residual / stage cotangent
+  float* Ps = R + NOUT * WTILE;                // [NP][WTILE] effective parameters
+  float* dPs = Ps + NP * WTILE;                // [NP][WTILE] their cotangents
+  float* dYs = dPs + NP * WTILE;               // [4][NS][WTILE] stage-state cotangents
+  float* dCs = dYs + 4 * NS * WTILE;           // [C][WTILE] feature-mode context cotangent
+  Ring ring;
+  ring.init(dCs + C * WTILE, cap);             // [2][cap]
 
   const int tid = threadIdx.x;
-  const bool owner = tid < TILE;
+  const bool owner = tid < WTILE;
   const int L = n_layers;
-  const int stage = (in_pad + L * H) * TILE;  // floats saved per stage
+  const int rowsA = in_pad + L * H;            // rows a stage saves of its inputs
+  const int rowsG = L * H + NOUT;              // ... and of its output cotangents
+  const int n_stages = 4 * substeps;
   float* part = partials + (size_t)blockIdx.x * n_w;
-  float* scr = scratch + (size_t)blockIdx.x * 4 * substeps * stage;
-  const float* bias0 = wpack + in_pad * H + (L - 1) * H * H + H * NOUT;
-  const int bias_off = in_pad * H + (L - 1) * H * H + H * NOUT;
-  auto w_off = [&](int l) { return l == 0 ? 0 : in_pad * H + (l - 1) * H * H; };
+  float* SA = scratch + (size_t)blockIdx.x * scratch_floats;  // [stage][rowsA][WTILE]
+  float* SG = SA + (size_t)n_stages * rowsA * WTILE;          // [stage][rowsG][WTILE]
+  unsigned* masks = reinterpret_cast<unsigned*>(SG + (size_t)n_stages * rowsG * WTILE);
+  const int bias_off = layer_offset(L, in_pad, H) + H * NOUT;
+  const float* bias0 = wpack + bias_off;
+  const float* wt0 = wpack + n_w;  // the transposed copies, in the layers' order
+  auto w_src = [&](int l) { return wpack + layer_offset(l, in_pad, H); };
+  auto wt_src = [&](int l) { return wt0 + layer_offset(l, in_pad, H); };
+  auto w_n = [&](int l) { return layer_floats(l, in_pad, H, L); };
   const float inv_s = 1.0f / (float)substeps;
 
   for (int i = tid; i < n_w; i += NTHREADS) part[i] = 0.f;
 
-  const int n_tiles = (B + TILE - 1) / TILE;
+  const int n_tiles = (B + WTILE - 1) / WTILE;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int b = tile * TILE + tid;
+    const int b = tile * WTILE + tid;
     const bool valid = owner && b < B;
 
-    for (int i = tid; i < in_pad * TILE; i += NTHREADS) X[i] = 0.f;
-    for (int i = tid; i < C * TILE; i += NTHREADS) dCs[i] = 0.f;
+    for (int i = tid; i < in_pad * WTILE; i += NTHREADS) X[i] = 0.f;
+    for (int i = tid; i < C * WTILE; i += NTHREADS) dCs[i] = 0.f;
     __syncthreads();
     float ybar[NS];
 #pragma unroll
@@ -272,14 +340,14 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
               P[p] = abs_mode ? c : P[p] * expf(c);
             }
         if (n_cp == 0)
-          for (int r = 0; r < C; ++r) X[(NF + r) * TILE + tid] = ctx[r * B + b];
+          for (int r = 0; r < C; ++r) X[(NF + r) * WTILE + tid] = ctx[r * B + b];
 #pragma unroll
         for (int s = 0; s < NS; ++s) ybar[s] = gbar[((T - 1) * NS + s) * B + b];
       }
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
-        Ps[p * TILE + tid] = P[p];
-        dPs[p * TILE + tid] = 0.f;
+        Ps[p * WTILE + tid] = P[p];
+        dPs[p * WTILE + tid] = 0.f;
       }
     }
     __syncthreads();
@@ -301,7 +369,8 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
       }
       const float h = (ts_r - ts_l) * inv_s;
 
-      // ---- forward pass over the interval, saving every stage ----
+      // ---- phase 1: forward pass over the interval, saving every stage ----
+      fetch_weights<STAGED>(ring, w_src(0), w_n(0));
       for (int j = 0; j < substeps; ++j) {
         const float jf = (float)j;
         const float t = ts_l + jf * h;
@@ -309,7 +378,8 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
 #pragma unroll
         for (int s = 0; s < NS; ++s) k[s] = ksum[s] = 0.f;
         for (int c = 0; c < 4; ++c) {
-          float* st = scr + (size_t)(4 * j + c) * stage;
+          const int stage = 4 * j + c;
+          float* at = SA + (size_t)stage * rowsA * WTILE;  // this stage's rows
           if (owner) {
             const float off = c == 0 ? 0.f : (c == 3 ? h : 0.5f * h);
             const float alpha = c == 0 ? jf : (c == 3 ? jf + 1.0f : jf + 0.5f);
@@ -318,40 +388,49 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
 #pragma unroll
             for (int s = 0; s < NS; ++s) ys[s] = c == 0 ? y[s] : y[s] + off * k[s];
 #pragma unroll
-            for (int p = 0; p < NP; ++p) P[p] = Ps[p * TILE + tid];
+            for (int p = 0; p < NP; ++p) P[p] = Ps[p * WTILE + tid];
             const float a = alpha * inv_s;
             const float m = m_l + (m_r - m_l) * a;
             const float v = v_l + (v_r - v_l) * a;
             X[tid] = tt;
 #pragma unroll
-            for (int s = 0; s < NS; ++s) X[(1 + s) * TILE + tid] = ys[s];
-            X[7 * TILE + tid] = ys[3];
-            X[8 * TILE + tid] = v;
+            for (int s = 0; s < NS; ++s) X[(1 + s) * WTILE + tid] = ys[s];
+            X[7 * WTILE + tid] = ys[3];
+            X[8 * WTILE + tid] = v;
             mech(ys, m, P, k);
           }
-          __syncthreads();
-          for (int i = tid; i < in_pad * SQ; i += NTHREADS)
-            reinterpret_cast<float4*>(st)[i] = reinterpret_cast<const float4*>(X)[i];
-          const float* w = wpack;
-          const float* bias = bias0;
           const float* in = X;
           int K = in_pad;
           for (int l = 0; l < L; ++l) {
+            const float* W = weights_ready<STAGED>(ring, w_src(l));
+            fetch_weights<STAGED>(ring, w_src(l + 1), w_n(l + 1));
+            if (l == 0)  // X is complete behind the barrier: save it
+              for (int e = tid; e < in_pad * WSQ; e += NTHREADS)
+                reinterpret_cast<float4*>(at)[e] = reinterpret_cast<const float4*>(X)[e];
             float* dst = (l & 1) ? Hb : Ha;
-            dense<BF16>(w, bias, in, dst, st + (in_pad + l * H) * TILE, K, H, true);
-            __syncthreads();
-            w += K * H;
-            bias += H;
+            const float* bias = bias0 + l * H;
+            float* at_l = at + (in_pad + l * H) * WTILE;
+            unsigned* mk = masks + (size_t)(stage * L + l) * mask_words;
+            dense_w<BF16, RT>(W, in, K, H, NoTag(),
+                              [&](int tt, int n0, int sq, int rows, float (&acc)[RT][4], int) {
+                                mk[tt] = bias_relu<RT>(acc, bias, n0, rows);
+                                store_tile<RT>(dst, n0, sq, rows, acc);
+                                store_tile<RT>(at_l, n0, sq, rows, acc);
+                              });
             in = dst;
             K = H;
           }
-          dense<BF16>(w, bias, in, R, nullptr, K, NOUT, false);
+          const float* W = weights_ready<STAGED>(ring, w_src(L));
+          // next: the next stage's first layer, or the reverse sweep's first product
+          if (stage + 1 < 4 * substeps) fetch_weights<STAGED>(ring, w_src(0), w_n(0));
+          else fetch_weights<STAGED>(ring, wt_src(L), w_n(L));
+          dense_out<BF16>(W, bias0 + L * H, in, R, K);
           __syncthreads();
           if (owner) {
             const float wgt = (c == 1 || c == 2) ? 2.0f : 1.0f;
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
-              k[s] += R[s * TILE + tid];
+              k[s] += R[s * WTILE + tid];
               ksum[s] = c == 0 ? k[s] : ksum[s] + wgt * k[s];
             }
           }
@@ -363,7 +442,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
         }
       }
 
-      // ---- reverse sweep: substeps backwards, stages 4, 3, 2, 1 ----
+      // ---- phase 2: reverse sweep, substeps backwards, stages 4, 3, 2, 1 ----
       for (int j = substeps - 1; j >= 0; --j) {
         float go[NS], dk[NS];
 #pragma unroll
@@ -372,47 +451,71 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
           dk[s] = (h / 6.0f) * go[s];
         }
         for (int c = 3; c >= 0; --c) {
-          const float* st = scr + (size_t)(4 * j + c) * stage;
-          auto act = [&](int l) { return st + (in_pad + l * H) * TILE; };
+          const int stage = 4 * j + c;
+          const float* at = SA + (size_t)stage * rowsA * WTILE;
+          float* gt = SG + (size_t)stage * rowsG * WTILE;
+          float xs[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // the stage state G, I, Glu, GLP1, FFA
           if (owner) {
+            xs[0] = at[1 * WTILE + tid]; xs[1] = at[2 * WTILE + tid];
+            xs[2] = at[3 * WTILE + tid]; xs[3] = at[4 * WTILE + tid];
+            xs[4] = at[6 * WTILE + tid];
+            float* gr = gt + L * H * WTILE;
 #pragma unroll
-            for (int s = 0; s < NS; ++s) R[s * TILE + tid] = dk[s];
-            R[6 * TILE + tid] = 0.f;
-            R[7 * TILE + tid] = 0.f;
+            for (int s = 0; s < NOUT; ++s) {
+              const float v = s < NS ? dk[s] : 0.f;
+              R[s * WTILE + tid] = v;
+              gr[s * WTILE + tid] = v;
+            }
           }
-          __syncthreads();
-          // MLP transpose: g is the cotangent of the current layer's output
+          // MLP transpose: product p takes the cotangent g of layer p's output
+          // to the cotangent of its input, u = W_p g, from the transposed copy;
+          // masked by layer p - 1's ReLU it is the next g
           const float* g = R;
-          int N = NOUT;
-          outer_acc<BF16>(part + w_off(L), part + bias_off + L * H, act(L - 1), g, H, NOUT);
-          for (int l = L - 1; l >= 0; --l) {
-            float* gz = (l & 1) ? Hb : Ha;
-            dense_t<BF16>(wpack + w_off(l + 1), g, gz, act(l), H, N);
-            __syncthreads();
-            g = gz;
-            N = H;
-            outer_acc<BF16>(part + w_off(l), part + bias_off + l * H, l > 0 ? act(l - 1) : st, g,
-                      l > 0 ? H : in_pad, H);
+          for (int p = L; p >= 0; --p) {
+            const float* W = weights_ready<STAGED>(ring, wt_src(p));
+            if (p > 0) fetch_weights<STAGED>(ring, wt_src(p - 1), w_n(p - 1));
+            else if (stage > 0) fetch_weights<STAGED>(ring, wt_src(L), w_n(L));
+            const int Kc = p == L ? NOUT : H;  // contraction: layer p's outputs
+            if (p > 0) {
+              float* gz = ((p - 1) & 1) ? Hb : Ha;
+              float* gt_l = gt + (p - 1) * H * WTILE;
+              const unsigned* mk = masks + (size_t)(stage * L + p - 1) * mask_words;
+              dense_w<BF16, RT>(W, g, Kc, H, [&](int tt) { return mk[tt]; },
+                                [&](int, int n0, int sq, int rows, float (&acc)[RT][4],
+                                    unsigned bits) {
+#pragma unroll
+                                  for (int i = 0; i < RT; ++i)
+#pragma unroll
+                                    for (int jj = 0; jj < 4; ++jj)
+                                      acc[i][jj] *= (bits >> (4 * i + jj)) & 1u ? 1.f : 0.f;
+                                  store_tile<RT>(gz, n0, sq, rows, acc);
+                                  store_tile<RT>(gt_l, n0, sq, rows, acc);
+                                });
+              g = gz;
+            } else {
+              dense_w<BF16, 4>(W, g, Kc, in_pad, NoTag(),
+                               [&](int, int n0, int sq, int rows, float (&acc)[4][4], int) {
+                                 store_tile<4>(dX, n0, sq, rows, acc);
+                               });
+            }
           }
-          dense_t<BF16>(wpack, g, dX, nullptr, in_pad, H);
           __syncthreads();
           if (owner) {
             float P[NP], dy[NS];
 #pragma unroll
-            for (int p = 0; p < NP; ++p) P[p] = Ps[p * TILE + tid];
-            dy[0] = dX[1 * TILE + tid];
-            dy[1] = dX[2 * TILE + tid];
-            dy[2] = dX[3 * TILE + tid];
-            dy[3] = dX[4 * TILE + tid] + dX[7 * TILE + tid];
-            dy[4] = dX[5 * TILE + tid];
-            dy[5] = dX[6 * TILE + tid];
+            for (int p = 0; p < NP; ++p) P[p] = Ps[p * WTILE + tid];
+            dy[0] = dX[1 * WTILE + tid];
+            dy[1] = dX[2 * WTILE + tid];
+            dy[2] = dX[3 * WTILE + tid];
+            dy[3] = dX[4 * WTILE + tid] + dX[7 * WTILE + tid];
+            dy[4] = dX[5 * WTILE + tid];
+            dy[5] = dX[6 * WTILE + tid];
             if (n_cp == 0)
-              for (int r = 0; r < C; ++r) dCs[r * TILE + tid] += dX[(NF + r) * TILE + tid];
-            mech_t(st[1 * TILE + tid], st[2 * TILE + tid], st[3 * TILE + tid],
-                   st[4 * TILE + tid], st[6 * TILE + tid], dk, P, dy, dPs + tid, TILE);
+              for (int r = 0; r < C; ++r) dCs[r * WTILE + tid] += dX[(NF + r) * WTILE + tid];
+            mech_t(xs[0], xs[1], xs[2], xs[3], xs[4], dk, P, dy, dPs + tid, WTILE);
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
-              dYs[(c * NS + s) * TILE + tid] = dy[s];
+              dYs[(c * NS + s) * WTILE + tid] = dy[s];
               // next stage's cotangent: dk3 = h/3 go + h dY4, dk2 = h/3 go +
               // h/2 dY3, dk1 = h/6 go + h/2 dY2
               if (c == 3) dk[s] = (h / 3.0f) * go[s] + h * dy[s];
@@ -424,13 +527,27 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
         if (owner) {
 #pragma unroll
           for (int s = 0; s < NS; ++s)
-            ybar[s] = go[s] + dYs[(0 * NS + s) * TILE + tid] + dYs[(1 * NS + s) * TILE + tid] +
-                      dYs[(2 * NS + s) * TILE + tid] + dYs[(3 * NS + s) * TILE + tid];
+            ybar[s] = go[s] + dYs[(0 * NS + s) * WTILE + tid] + dYs[(1 * NS + s) * WTILE + tid] +
+                      dYs[(2 * NS + s) * WTILE + tid] + dYs[(3 * NS + s) * WTILE + tid];
         }
       }
       if (valid) {
 #pragma unroll
         for (int s = 0; s < NS; ++s) ybar[s] = ybar[s] + gbar[(iv * NS + s) * B + b];
+      }
+
+      // ---- phase 3: the interval's weight and bias cotangents ----
+      __syncthreads();  // every stage's rows are written
+      for (int l = 0; l <= L; ++l) {
+        const int K = l == 0 ? in_pad : H, N = l < L ? H : NOUT;
+        float* D = part + layer_offset(l, in_pad, H);
+        float* Db = part + bias_off + l * H;
+        const float* a_l = SA + (l == 0 ? 0 : in_pad + (l - 1) * H) * WTILE;
+        const float* g_l = SG + l * H * WTILE;
+        if (K % 8 == 0 && N % 8 == 0 && (K / 8) * (N / 8) >= NTHREADS)
+          outer_w<BF16, 8, 8>(D, Db, a_l, rowsA, g_l, rowsG, n_stages, K, N, ring);
+        else
+          outer_w<BF16, 4, 4>(D, Db, a_l, rowsA, g_l, rowsG, n_stages, K, N, ring);
       }
     }
 
@@ -440,46 +557,100 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
       // params mode: closed-form fold of the effective-parameter cotangents
       for (int r = 0; r < n_cp; ++r) {
         const int p = cidx[r];
-        const float d = dPs[p * TILE + tid];
+        const float d = dPs[p * WTILE + tid];
         if (abs_mode) {
           dctx_out[b * C + r] = d;
-          dPs[p * TILE + tid] = 0.f;
+          dPs[p * WTILE + tid] = 0.f;
         } else {
-          dctx_out[b * C + r] = d * Ps[p * TILE + tid];
-          dPs[p * TILE + tid] = d * expf(ctx[r * B + b]);
+          dctx_out[b * C + r] = d * Ps[p * WTILE + tid];
+          dPs[p * WTILE + tid] = d * expf(ctx[r * B + b]);
         }
       }
       if (n_cp == 0)
-        for (int r = 0; r < C; ++r) dctx_out[b * C + r] = dCs[r * TILE + tid];
-      for (int p = 0; p < NP; ++p) dp_out[p * B + b] = dPs[p * TILE + tid];
+        for (int r = 0; r < C; ++r) dctx_out[b * C + r] = dCs[r * WTILE + tid];
+      for (int p = 0; p < NP; ++p) dp_out[p * B + b] = dPs[p * WTILE + tid];
     }
     __syncthreads();
   }
 }
 
-}  // namespace
-
-// Number of blocks to launch: those that can be resident at once, at most
-// one per 32-sample tile. The caller sizes `partials` and `scratch` by it.
-extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int bf16, int* grid) {
-  const size_t smem = smem_bytes(C, in_pad, H);
-  auto kernel = bf16 ? fused_rk4_bwd_kernel<true> : fused_rk4_bwd_kernel<false>;
+template <bool BF16, int RT, bool STAGED>
+cudaError_t resident_blocks(size_t smem, int* blocks) {
+  auto kernel = fused_rk4_bwd_kernel<BF16, RT, STAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+    return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, kernel, NTHREADS, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tiles = (B + TILE - 1) / TILE;
-  *grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <bool BF16, int RT, bool STAGED>
+cudaError_t launch(const Layout& lay, int grid, cudaStream_t stream, const float* traj,
+                   const float* gbar, const float* ts, const float* meal, const float* tvns,
+                   const float* ctx, const float* wpack, const float* pvec, const int* cidx,
+                   float* ybar0, float* dp, float* dctx, float* partials, float* scratch, int B,
+                   int T, int C, int in_pad, int H, int n_layers, int substeps, int n_cp,
+                   int abs_mode, int n_w) {
+  auto kernel = fused_rk4_bwd_kernel<BF16, RT, STAGED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, lay.smem, stream>>>(
+      traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0, dp, dctx, partials, scratch,
+      B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w, lay.cap, lay.mask_words,
+      lay.scratch);
+  return cudaGetLastError();
+}
+
+// fn<BF16, RT, STAGED>(args...) for the instantiation the layout and dtype name.
+#define FUSED_RK4_BWD_DISPATCH(fn, bf16, lay, ...)                                          \
+  ((bf16) ? ((lay).staged ? ((lay).rt == 8 ? fn<true, 8, true>(__VA_ARGS__)                 \
+                                           : fn<true, 4, true>(__VA_ARGS__))                \
+                          : ((lay).rt == 8 ? fn<true, 8, false>(__VA_ARGS__)                \
+                                           : fn<true, 4, false>(__VA_ARGS__)))              \
+          : ((lay).staged ? ((lay).rt == 8 ? fn<false, 8, true>(__VA_ARGS__)                \
+                                           : fn<false, 4, true>(__VA_ARGS__))               \
+                          : ((lay).rt == 8 ? fn<false, 8, false>(__VA_ARGS__)               \
+                                           : fn<false, 4, false>(__VA_ARGS__))))
+
+}  // namespace
+
+// What a caller allocates for a launch on these shapes:
+//   sizes[0]  samples per tile
+//   sizes[1]  blocks to launch: those that can be resident at once, at most
+//             one per tile
+//   sizes[2]  floats of `scratch` per block
+//   sizes[3]  floats of `partials` per block (the packed weights and biases)
+//   sizes[4]  1 when the weights are staged through shared memory
+extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers, int substeps,
+                                  int bf16, long long* sizes) {
+  if (B < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad < 4 || in_pad % 4 != 0 || n_layers < 1 ||
+      substeps < 1)
+    return (int)cudaErrorInvalidValue;
+  Layout lay;
+  if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err = FUSED_RK4_BWD_DISPATCH(resident_blocks, bf16, lay, lay.smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (B + WTILE - 1) / WTILE;
+  sizes[0] = WTILE;
+  sizes[1] = tiles < blocks ? tiles : blocks;
+  sizes[2] = lay.scratch;
+  sizes[3] = layer_offset(n_layers, in_pad, H) + H * NOUT + n_layers * H + NOUT;
+  sizes[4] = lay.staged;
   return 0;
 }
 
+// wpack: the packed weights and biases (n_w floats), then every layer's
+// weights once more transposed, (out, in) row-major, in the layers' order.
 extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* ts,
                              const float* meal, const float* tvns, const float* ctx,
                              const float* wpack, const float* pvec, const int* cidx,
@@ -494,16 +665,13 @@ extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* 
       n_w != in_pad * H + (n_layers - 1) * H * H + H * NOUT + n_layers * H + NOUT ||
       (long long)T * NS * B > 0x7fffffffLL)  // int offsets
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(C, in_pad, H);
-  auto kernel = bf16 ? fused_rk4_bwd_kernel<true> : fused_rk4_bwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  Layout lay;
+  if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<grid, NTHREADS, smem, s>>>(
-      traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0, dp, dctx, partials,
-      scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err = FUSED_RK4_BWD_DISPATCH(
+      launch, bf16, lay, lay, grid, s, traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0,
+      dp, dctx, partials, scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w);
+  if (err != cudaSuccess) return (int)err;
   sum_rows<<<(n_w + 255) / 256, 256, 0, s>>>(partials, grid, n_w, dflat);
   return (int)cudaGetLastError();
 }

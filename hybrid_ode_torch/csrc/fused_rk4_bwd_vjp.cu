@@ -626,6 +626,12 @@ extern "C" int fused_rk4_bwd_vjp_grid(int B, int C, int in_pad, int H, int subst
   return 0;
 }
 
+// Samples per block tile: the caller sizes a scratch slot by it.
+extern "C" int fused_rk4_bwd_vjp_tile(int* tile) {
+  *tile = TILE;
+  return 0;
+}
+
 // schedule 0: dpv (32,) and dpv_part (grid, 32) are written, dp is not read;
 // schedule 1: dp (17, B) is written, dpv and dpv_part are not read.
 extern "C" int fused_rk4_bwd_vjp(const float* traj, const float* gbar, const float* ts,

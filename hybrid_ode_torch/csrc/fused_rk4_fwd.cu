@@ -14,25 +14,34 @@
 // T = 61, substeps = 4, H = 128, 16 context features) the MLP alone is
 // 2 * 8192 * 960 * 53,120 = 8.4e11 FLOP against 19 MB of inputs and outputs,
 // so the least time is the FLOP count over the card's f32 CUDA-core peak
-// (67 TFLOP/s): about 12.6 ms. Tensor cores (TF32 / bf16) would change the
-// numerics and are left to a later version.
+// (67 TFLOP/s): about 12.6 ms. The f32 products stay on the CUDA cores (no
+// TF32, no tensor cores): the port is held to f32 references at 1e-4.
 //
-// Design:
-//   * One launch integrates the whole trajectory. A block owns TILE samples
-//     and loops over every step and stage; nothing carries over between
-//     blocks. Thread `tid < TILE` owns sample `blockIdx.x * TILE + tid`: its
-//     state, RK4 stage sums and (per-sample) mechanistic parameters stay in
-//     registers for the whole run. Rows are written to global memory only
-//     at observation points.
-//   * The packed f32 weights (217 KB at H = 128) do not fit in shared
-//     memory beside the activations, so they are read from global memory
-//     through the read-only path; they stay resident in the 50 MB L2.
-//     Shared memory holds only the tile's activations: the feature block
-//     X (in_pad x TILE), two hidden buffers (H x TILE) and the residual
-//     (8 x TILE), 37 KB at H = 128.
-//   * Each dense layer is a register-tiled product: a thread computes 4
-//     output rows x 4 samples, reading a float4 of weights (row k of the
-//     (in, out) layout) and a float4 of activations per k.
+// Design (fused_rk4_wide.cuh has the shared parts):
+//   * One launch integrates the whole trajectory. A block owns a tile of
+//     WTILE = 64 samples and loops over every step and stage; nothing carries
+//     over between blocks. Thread `tid < WTILE` owns sample
+//     `blockIdx.x * WTILE + tid`: its state, RK4 stage sums and (per-sample)
+//     mechanistic parameters stay in registers for the whole run. Rows are
+//     written to global memory only at observation points.
+//   * One block per SM (the cohort's 128 tiles are one wave on 132 SMs). Its
+//     shared memory holds the tile's activations (feature block X, two hidden
+//     buffers, the residual: 76 KB at H = 128) and two weight buffers of one
+//     layer each (2 x 64 KB). Layer l + 1 arrives by cp.async while layer l
+//     multiplies; the next stage's first layer arrives during the last layer
+//     and the owner phase. Route `staged`: taken when both buffers fit in the
+//     227 KB a block can get, i.e. H <= 128 at the usual input widths.
+//     Otherwise (H up to about 430) the same products read the weights from
+//     global memory through the read-only path.
+//   * Each hidden layer is a register-tiled product: a thread computes 8
+//     output rows x 4 samples (4 x 4 when H < 128, so that every thread still
+//     has a tile), 32 FMA per two broadcast float4 of weights and one float4
+//     of activations, all from shared memory.
+//   * The last layer (8 rows) is spread over all threads, two rows and one
+//     sample each, K sequential.
+//   * Accumulation order: k ascending from 0 by fmaf, then the bias, then the
+//     ReLU, exactly as fused_rk4_common.cuh's `dense` does on its 32-sample
+//     tile, so the adjoint kernels rebuild bitwise equal pre-activations.
 //   * Lanes past B are masked (no loads, no stores), not padded.
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): the
@@ -48,15 +57,16 @@
 // loaded with ctypes (hybrid_ode_torch/ops/fused_rk4.py). It returns the
 // cudaError_t of the launch.
 
-#include "fused_rk4_common.cuh"
+#include "fused_rk4_wide.cuh"
 
 namespace {
 
 using namespace fused_rk4;
 
-// BF16: mlp_dtype='bf16', see fused_rk4_common.cuh.
-template <bool BF16>
-__global__ void __launch_bounds__(NTHREADS)
+// BF16: mlp_dtype='bf16'; RT: output rows per thread of a hidden layer's
+// product; STAGED: weights through shared memory (fused_rk4_wide.cuh).
+template <bool BF16, int RT, bool STAGED>
+__global__ void __launch_bounds__(NTHREADS, 1)
 fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
                      const float* __restrict__ ts,    // (T, B)
                      const float* __restrict__ meal,  // (T, B)
@@ -67,19 +77,25 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
                      const int* __restrict__ cidx,    // (n_cp,) or null
                      float* __restrict__ out,         // (T, 6, B)
                      int B, int T, int C, int in_pad, int H, int n_layers,
-                     int substeps, int n_cp, int abs_mode) {
+                     int substeps, int n_cp, int abs_mode, int wcap) {
   extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);  // [in_pad][TILE]
-  float* Ha = X + in_pad * TILE;               // [H][TILE]
-  float* Hb = Ha + H * TILE;                   // [H][TILE]
-  float* R = Hb + H * TILE;                    // [NOUT][TILE]
+  float* X = reinterpret_cast<float*>(smem4);  // [in_pad][WTILE]
+  float* Ha = X + in_pad * WTILE;              // [H][WTILE]
+  float* Hb = Ha + H * WTILE;                  // [H][WTILE]
+  float* R = Hb + H * WTILE;                   // [NOUT][WTILE]
+  Ring ring;
+  ring.init(R + NOUT * WTILE, wcap);           // [2][wcap] when STAGED
 
   const int tid = threadIdx.x;
-  const bool owner = tid < TILE;
-  const int b = blockIdx.x * TILE + tid;
+  const bool owner = tid < WTILE;
+  const int b = blockIdx.x * WTILE + tid;
   const bool valid = owner && b < B;
+  const int L = n_layers;
+  auto w_src = [&](int l) { return wpack + layer_offset(l, in_pad, H); };
+  auto w_n = [&](int l) { return layer_floats(l, in_pad, H, L); };
 
-  for (int i = tid; i < in_pad * TILE; i += NTHREADS) X[i] = 0.f;
+  fetch_weights<STAGED>(ring, w_src(0), w_n(0));
+  for (int i = tid; i < in_pad * WTILE; i += NTHREADS) X[i] = 0.f;
   __syncthreads();
 
   float P[NP];
@@ -98,7 +114,7 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
           P[p] = abs_mode ? c : P[p] * expf(c);
         }
     if (n_cp == 0)  // features mode: context rows are MLP inputs, fixed per run
-      for (int r = 0; r < C; ++r) X[(NF + r) * TILE + tid] = ctx[r * B + b];
+      for (int r = 0; r < C; ++r) X[(NF + r) * WTILE + tid] = ctx[r * B + b];
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       y[s] = y0[b * NS + s];
@@ -106,7 +122,7 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
     }
   }
 
-  const float* bias0 = wpack + in_pad * H + (n_layers - 1) * H * H + H * NOUT;
+  const float* bias0 = wpack + layer_offset(L, in_pad, H) + H * NOUT;
   const float inv_s = 1.0f / (float)substeps;
 
   for (int i = 0; i + 1 < T; ++i) {
@@ -140,32 +156,36 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
           const float v = v_l + (v_r - v_l) * a;
           X[tid] = tt;
 #pragma unroll
-          for (int s = 0; s < NS; ++s) X[(1 + s) * TILE + tid] = ys[s];
-          X[7 * TILE + tid] = ys[3];
-          X[8 * TILE + tid] = v;
+          for (int s = 0; s < NS; ++s) X[(1 + s) * WTILE + tid] = ys[s];
+          X[7 * WTILE + tid] = ys[3];
+          X[8 * WTILE + tid] = v;
           mech(ys, m, P, k);
         }
-        __syncthreads();
-        const float* w = wpack;
-        const float* bias = bias0;
         const float* in = X;
         int K = in_pad;
-        for (int l = 0; l < n_layers; ++l) {
+        for (int l = 0; l < L; ++l) {
+          // the barrier inside publishes X / the last layer's output too
+          const float* W = weights_ready<STAGED>(ring, w_src(l));
+          fetch_weights<STAGED>(ring, w_src(l + 1), w_n(l + 1));
           float* dst = (l & 1) ? Hb : Ha;
-          dense<BF16>(w, bias, in, dst, nullptr, K, H, true);
-          __syncthreads();
-          w += K * H;
-          bias += H;
+          const float* bias = bias0 + l * H;
+          dense_w<BF16, RT>(W, in, K, H, NoTag(),
+                            [&](int, int n0, int sq, int rows, float (&acc)[RT][4], int) {
+                              bias_relu<RT>(acc, bias, n0, rows);
+                              store_tile<RT>(dst, n0, sq, rows, acc);
+                            });
           in = dst;
           K = H;
         }
-        dense<BF16>(w, bias, in, R, nullptr, K, NOUT, false);
+        const float* W = weights_ready<STAGED>(ring, w_src(L));
+        fetch_weights<STAGED>(ring, w_src(0), w_n(0));  // the next stage's first layer
+        dense_out<BF16>(W, bias0 + L * H, in, R, K);
         __syncthreads();
         if (owner) {
           const float wgt = (c == 1 || c == 2) ? 2.0f : 1.0f;
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
-            k[s] += R[s * TILE + tid];
+            k[s] += R[s * WTILE + tid];
             ksum[s] = c == 0 ? k[s] : ksum[s] + wgt * k[s];
           }
         }
@@ -181,9 +201,42 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
       for (int s = 0; s < NS; ++s) out[((i + 1) * NS + s) * B + b] = y[s];
     }
   }
+  __pipeline_wait_prior(0);  // the last stage fetched a layer nobody will use
+}
+
+// Shared memory of a block and its route for these widths: 0 on success.
+int fwd_layout(int in_pad, int H, int n_layers, size_t* smem, int* wcap, int* staged) {
+  const size_t acts = sizeof(float) * (size_t)(in_pad + 2 * H + NOUT) * WTILE;
+  *wcap = max_layer_floats(in_pad, H, n_layers);
+  const size_t both = acts + 2 * sizeof(float) * (size_t)*wcap;
+  *staged = both <= (size_t)SMEM_LIMIT;
+  *smem = *staged ? both : acts;
+  return *smem <= (size_t)SMEM_LIMIT ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool BF16, int RT, bool STAGED>
+cudaError_t launch(size_t smem, int grid, cudaStream_t stream, const float* y0,
+                   const float* ts, const float* meal, const float* tvns, const float* ctx,
+                   const float* wpack, const float* pvec, const int* cidx, float* out, int B,
+                   int T, int C, int in_pad, int H, int n_layers, int substeps, int n_cp,
+                   int abs_mode, int wcap) {
+  auto kernel = fused_rk4_fwd_kernel<BF16, RT, STAGED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      y0, ts, meal, tvns, ctx, wpack, pvec, cidx, out, B, T, C, in_pad, H, n_layers,
+      substeps, n_cp, abs_mode, wcap);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// tile[0] = samples per block: what a caller needs to cross a tile's edge.
+extern "C" int fused_rk4_fwd_tile(int* tile) {
+  *tile = WTILE;
+  return 0;
+}
 
 extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal,
                              const float* tvns, const float* ctx,
@@ -196,14 +249,19 @@ extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && !ctx) ||
       (n_cp && !cidx) || (long long)T * NS * B > 0x7fffffffLL)  // int offsets
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)(in_pad + 2 * H + NOUT) * TILE;
-  auto kernel = bf16 ? fused_rk4_fwd_kernel<true> : fused_rk4_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TILE - 1) / TILE);
-  kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      y0, ts, meal, tvns, ctx, wpack, pvec, cidx, out, B, T, C, in_pad, H,
-      n_layers, substeps, n_cp, abs_mode);
-  return (int)cudaGetLastError();
+  size_t smem;
+  int wcap, staged;
+  if (fwd_layout(in_pad, H, n_layers, &smem, &wcap, &staged)) return (int)cudaErrorInvalidValue;
+  const int grid = (B + WTILE - 1) / WTILE;
+  const bool rt8 = (H / 8) * WSQ >= NTHREADS;  // else 4 rows, so that no thread idles
+  auto go = [&](auto fn) {
+    return (int)fn(smem, grid, (cudaStream_t)stream, y0, ts, meal, tvns, ctx, wpack, pvec,
+                   cidx, out, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, wcap);
+  };
+  if (bf16) {
+    if (staged) return rt8 ? go(launch<true, 8, true>) : go(launch<true, 4, true>);
+    return rt8 ? go(launch<true, 8, false>) : go(launch<true, 4, false>);
+  }
+  if (staged) return rt8 ? go(launch<false, 8, true>) : go(launch<false, 4, true>);
+  return rt8 ? go(launch<false, 8, false>) : go(launch<false, 4, false>);
 }

@@ -12,6 +12,11 @@ with ctypes:
     second time, as the reverse sweep that differentiating one RK4 substep
     generates, in two schedules (`bwd_impl='recompute'`, `'chained'`) and
     six timing probes (`'probe_*'`, partial gradients by design).
+The forward kernel and the hand adjoint work on 64-sample tiles with the MLP
+weights staged layer by layer in shared memory (`csrc/fused_rk4_wide.cuh`);
+the second derivation keeps the 32-sample tile of `csrc/fused_rk4_common.cuh`.
+Every tile, grid and buffer size comes from the libraries (`fwd_tile`,
+`bwd_sizes`): this module holds no copy of a kernel constant.
 Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`,
 `_bwd_vjp_plain`), the same function in torch ops on the same (features,
 batch) layout; `_bwd_vjp_plain` takes its transposes from torch autograd.
@@ -88,8 +93,10 @@ _BUILD_DIR = _PKG / "build"
 # -fmad=false: outside the explicit fmaf of the matmul loops, every product
 # and sum rounds on its own, as the plain version's tensor ops do, so the
 # adjoint's recomputed ReLU masks agree with the plain version's
+# --split-compile 0: a source's kernels are optimised in parallel on all cores
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "--split-compile", "0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -553,14 +560,18 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
     fwd = libs["fused_rk4_fwd"].fused_rk4_fwd
     fwd.argtypes = [p] * 9 + [i] * 10 + [p]
     fwd.restype = i
+    libs["fused_rk4_fwd"].fused_rk4_fwd_tile.argtypes = [ctypes.POINTER(i)]
+    libs["fused_rk4_fwd"].fused_rk4_fwd_tile.restype = i
     bwd_lib = libs["fused_rk4_bwd"]
-    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
     bwd_lib.fused_rk4_bwd_grid.restype = i
     bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 12 + [p]
     bwd_lib.fused_rk4_bwd.restype = i
     vjp_lib = libs["fused_rk4_bwd_vjp"]
     vjp_lib.fused_rk4_bwd_vjp_grid.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     vjp_lib.fused_rk4_bwd_vjp_grid.restype = i
+    vjp_lib.fused_rk4_bwd_vjp_tile.argtypes = [ctypes.POINTER(i)]
+    vjp_lib.fused_rk4_bwd_vjp_tile.restype = i
     vjp_lib.fused_rk4_bwd_vjp.argtypes = [p] * 17 + [i] * 15 + [p]
     vjp_lib.fused_rk4_bwd_vjp.restype = i
     return libs
@@ -604,15 +615,62 @@ def _cidx(ctx_param_idx, dev):
             if ctx_param_idx else None)
 
 
-def _kernel_weights(pw: PackedWeights, mlp_dtype: str) -> torch.Tensor:
+def _kernel_weights(pw: PackedWeights, mlp_dtype: str, transposed: bool = False) -> torch.Tensor:
     """The flat weights as the kernels read them: for 'bf16' a copy whose
-    weights (not the biases behind them) are rounded to bf16 once."""
-    if mlp_dtype == "f32":
-        return pw.flat
-    n_bias = pw.n_layers * pw.hidden + N_OUT
-    flat = pw.flat.clone()
-    flat[:-n_bias] = _bf16(flat[:-n_bias])
-    return flat
+    weights (not the biases behind them) are rounded to bf16 once. With
+    `transposed` (the hand adjoint) every layer's weights follow once more as
+    (out, in) row-major, in the layers' order: its transposed products then
+    read rows where the packed layout has columns."""
+    flat = pw.flat
+    if mlp_dtype == "bf16":
+        n_bias = pw.n_layers * pw.hidden + N_OUT
+        flat = flat.clone()
+        flat[:-n_bias] = _bf16(flat[:-n_bias])
+    if not transposed:
+        return flat
+    ws = _unflatten(flat, pw.in_pad, pw.hidden, pw.n_layers).ws
+    return torch.cat([flat] + [w.t().reshape(-1) for w in ws])
+
+
+class BwdSizes(NamedTuple):
+    """What the hand adjoint's library reports for a launch (fused_rk4_bwd_grid)."""
+
+    tile: int           # samples per block tile
+    grid: int           # blocks to launch
+    scratch: int        # floats of scratch per block
+    partials: int       # floats of weight-cotangent partials per block
+    staged: bool        # weights staged through shared memory (the fast route)
+
+
+def fwd_tile() -> int:
+    """Samples per block tile of the forward kernel, as its library reports it."""
+    tile = ctypes.c_int(0)
+    err = _libraries()["fused_rk4_fwd"].fused_rk4_fwd_tile(ctypes.byref(tile))
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_fwd_tile failed: cudaError {err}")
+    return tile.value
+
+
+def bwd_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps: int,
+              mlp_dtype: str = "f32", device=None) -> BwdSizes:
+    """Tile, grid and per-block buffer sizes of a hand-adjoint launch on these
+    shapes, asked of the library: Python holds no copy of a kernel constant."""
+    out = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(device):
+        err = _libraries()["fused_rk4_bwd"].fused_rk4_bwd_grid(
+            B, C, in_pad, hidden, n_layers, substeps, int(mlp_dtype == "bf16"), out)
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd_grid failed: cudaError {err}")
+    return BwdSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]))
+
+
+def _bwd_workspace(sizes: BwdSizes, n_w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(partials (grid, n_w), scratch (grid, floats per block)) for a launch."""
+    if sizes.partials != n_w:
+        raise RuntimeError(f"the library's partials hold {sizes.partials} floats per block, "
+                           f"the packed weights {n_w}")
+    return (torch.empty((sizes.grid, n_w), dtype=torch.float32, device=device),
+            torch.empty((sizes.grid, sizes.scratch), dtype=torch.float32, device=device))
 
 
 def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
@@ -661,7 +719,8 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
 
     Each block accumulates the weight cotangents of the samples it walks
     into its own slice of `partials`; a second kernel sums the slices in
-    block order, so the result does not depend on scheduling."""
+    block order, so the result does not depend on scheduling. The library
+    says how many blocks it wants and how much scratch each needs."""
     global fused_rk4_bwd_launches
     T, _, B = traj.shape
     _check("traj", traj, (T, 6, B))
@@ -671,27 +730,21 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     lib = _libraries()["fused_rk4_bwd"]
     H, L, in_pad = pw.hidden, pw.n_layers, pw.in_pad
     bf16 = int(mlp_dtype == "bf16")
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        err = lib.fused_rk4_bwd_grid(B, C, in_pad, H, bf16, ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"fused_rk4_bwd_grid failed: cudaError {err}")
+    sizes = bwd_sizes(B, C, in_pad, H, L, substeps, mlp_dtype, dev)
     n_w = pw.flat.numel()
-    stage = (in_pad + L * H) * 32  # floats of one stage's saved features + activations
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     ybar0, dp, dflat = empty((B, 6)), empty((N_PARAMS, B)), empty((n_w,))
     dctx = empty((B, C)) if C else None
-    partials = empty((grid.value, n_w))
-    scratch = empty((grid.value, 4 * substeps * stage))
+    partials, scratch = _bwd_workspace(sizes, n_w, dev)
     cidx = _cidx(ctx_param_idx, dev)
-    weights = _kernel_weights(pw, mlp_dtype)
+    weights = _kernel_weights(pw, mlp_dtype, transposed=True)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_rk4_bwd(
             _ptr(traj), _ptr(gbar), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t),
             _ptr(weights), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dctx),
             _ptr(dflat), _ptr(partials), _ptr(scratch), B, T, C, in_pad, H, L, substeps,
-            n_cp, int(ctx_param_mode == "abs"), bf16, grid.value, n_w, stream)
+            n_cp, int(ctx_param_mode == "abs"), bf16, sizes.grid, n_w, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd launch failed: cudaError {err}")
     fused_rk4_bwd_launches += 1
@@ -736,7 +789,9 @@ def _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pv
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd_vjp_grid failed: cudaError {err}")
     n_w = pw.flat.numel()
-    stage = (in_pad + L * H) * 32  # floats of one stage's saved features + activations
+    tile = ctypes.c_int(0)
+    lib.fused_rk4_bwd_vjp_tile(ctypes.byref(tile))
+    stage = (in_pad + L * H) * tile.value  # floats of one stage's saved features + activations
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     ybar0, dflat = empty((B, 6)), empty((n_w,))
     dp = None if recompute else empty((N_PARAMS, B))
