@@ -78,8 +78,7 @@ the last line:
                 hand adjoint; identify_context per step at the test split's
                 and the cohort's size; then one cohort train step under
                 torch.profiler: device time per kernel and the device's busy
-                share of the step; the SM clock and power draw nvidia-smi
-                reads while the two redesigned kernels are timed
+                share of the step
 Then one JSON line with the three kernels, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -152,7 +151,9 @@ BWD_SMALL_RTOL, BWD_FULL_RTOL = 1e-5, 1e-4
 BF16_SMALL_RTOL, BF16_SHORT_RTOL = 1e-4, 1e-3
 BF16_SHORT_T = 7
 # the two kernels' times before their redesign for Hopper, at the cohort shape
-# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6)
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): printed beside this
+# run's times and written to chip_smoke.json, not part of the kernels line,
+# which holds only what this run measured
 PREVIOUS_MS = {"fused_rk4_fwd": 68.289, "fused_rk4_bwd": 205.865}
 PROBES = ("probe_y", "probe_yw", "probe_y_mlp", "probe_y_mech", "probe_fwd1", "probe_fwd2")
 # NVIDIA H100 SXM data sheet, 700 W: f32 outside the tensor cores, HBM3
@@ -496,29 +497,6 @@ def expected_bwd_sizes(B, in_pad, H, L, substeps, tile):
     return -(-B // tile), scratch, partials
 
 
-class ClockSampler:
-    """nvidia-smi's SM clock and power draw, sampled every 100 ms while a
-    block of code runs; `median()` afterwards."""
-
-    def __enter__(self):
-        self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
-             "-lms", "100"], stdout=subprocess.PIPE, text=True)
-        return self
-
-    def __exit__(self, *exc):
-        self.proc.terminate()
-        out, _ = self.proc.communicate(timeout=30)
-        rows = [ln.split(",") for ln in out.splitlines() if ln.count(",") == 1]
-        self.samples = [(float(a), float(b)) for a, b in rows]
-
-    def median(self):
-        if not self.samples:
-            fail("nvidia-smi gave no clock sample")
-        return (statistics.median(s[0] for s in self.samples),
-                statistics.median(s[1] for s in self.samples), len(self.samples))
-
-
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -829,12 +807,10 @@ def main():
     # 5. timing
     with torch.no_grad():
         traj_full, gbar_full = bwd_inputs(packed, T, SUBSTEPS)
-        with ClockSampler() as clocks:
-            ms = time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS), 3, 20)
-            bwd_ms = time_ms(lambda: fused_rk4.fused_rk4_bwd(traj_full, gbar_full, *packed[1:],
-                                                             SUBSTEPS), 2, 20)
+        ms = time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS), 3, 20)
+        bwd_ms = time_ms(lambda: fused_rk4.fused_rk4_bwd(traj_full, gbar_full, *packed[1:],
+                                                         SUBSTEPS), 2, 20)
         plain_ms = time_ms(lambda: fused_rk4._fwd_plain(*packed, SUBSTEPS), 1, 10)
-    sm_mhz, watts, n_samples = clocks.median()
     nn = params["nn"]
     steps = COHORT * (T - 1) * SUBSTEPS
     fwd_ops, bwd_ops = kernel_ops(nn, config.nn_layers, config.nn_hidden, COHORT, T, SUBSTEPS, C)
@@ -852,9 +828,8 @@ def main():
           f"({bwd_ops:.4e} FLOP at f32 peak; {bwd_bytes} B = {bwd_t_bytes:.4f} ms at HBM peak)")
     print(f"timing ({smi}): share of bound fwd {100 * bound_ms / ms:.1f}% bwd "
           f"{100 * bwd_bound_ms / bwd_ms:.1f}%; before the redesign fwd "
-          f"{PREVIOUS_MS['fused_rk4_fwd']} ms bwd {PREVIOUS_MS['fused_rk4_bwd']} ms; while both were "
-          f"timed nvidia-smi read a median SM clock of {sm_mhz:.0f} MHz and {watts:.0f} W over "
-          f"{n_samples} samples (the 67 TFLOP/s peak is 132 SMs x 128 FMA at 1980 MHz)")
+          f"{PREVIOUS_MS['fused_rk4_fwd']} ms bwd {PREVIOUS_MS['fused_rk4_bwd']} ms (not measured "
+          "in this run)")
 
     # the second-derivation kernel, its probes and what they decompose
     vjp_ms = {}
@@ -948,8 +923,7 @@ def main():
          "launches": launches + train_launches[0] + id_launches[0],
          "max_abs_err": max(max_abs.values()),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-         "library_ms": None, "ms_bf16": bf16_ms["fwd"],
-         "previous_ms": PREVIOUS_MS["fused_rk4_fwd"]},
+         "library_ms": None, "ms_bf16": bf16_ms["fwd"]},
         {"name": "fused_rk4_bwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:414",
@@ -957,7 +931,7 @@ def main():
          "max_abs_err": max(bwd_max_abs.values()),
          "ms": bwd_ms, "plain_ms": bwd_plain_s * 1e3, "plain_batch": BWD_B,
          "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,
-         "ms_bf16": bf16_ms["bwd"], "previous_ms": PREVIOUS_MS["fused_rk4_bwd"]},
+         "ms_bf16": bf16_ms["bwd"]},
         {"name": "fused_rk4_bwd_vjp", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd_vjp.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:692",
@@ -973,8 +947,7 @@ def main():
                   train_step_ms={"H128_C16": step_ms, "H64": step64_ms},
                   train_step_bound_ms=train_bounds, vjp_ms=vjp_ms, bf16_ms=bf16_ms,
                   decomposition_ms=decomposition, identify_step_ms=id_ms,
-                  clocks={"sm_mhz": sm_mhz, "watts": watts, "samples": n_samples},
-                  tile=tile, routes=routes)
+                  previous_ms=PREVIOUS_MS, tile=tile, routes=routes)
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1, default=float))
     print(json.dumps({"kernels": entries}))

@@ -404,7 +404,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
           for (int l = 0; l < L; ++l) {
             const float* W = weights_ready<STAGED>(ring, w_src(l));
             fetch_weights<STAGED>(ring, w_src(l + 1), w_n(l + 1));
-            if (l == 0)  // X is complete behind the barrier: save it
+            if (l == 0 && !CUT_SAVES)  // X is complete behind the barrier: save it
               for (int e = tid; e < in_pad * WSQ; e += NTHREADS)
                 reinterpret_cast<float4*>(at)[e] = reinterpret_cast<const float4*>(X)[e];
             float* dst = (l & 1) ? Hb : Ha;
@@ -415,7 +415,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
                               [&](int tt, int n0, int sq, int rows, float (&acc)[RT][4], int) {
                                 mk[tt] = bias_relu<RT>(acc, bias, n0, rows);
                                 store_tile<RT>(dst, n0, sq, rows, acc);
-                                store_tile<RT>(at_l, n0, sq, rows, acc);
+                                if (!CUT_SAVES) store_tile<RT>(at_l, n0, sq, rows, acc);
                               });
             in = dst;
             K = H;
@@ -443,7 +443,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
       }
 
       // ---- phase 2: reverse sweep, substeps backwards, stages 4, 3, 2, 1 ----
-      for (int j = substeps - 1; j >= 0; --j) {
+      for (int j = CUT_SWEEP ? -1 : substeps - 1; j >= 0; --j) {
         float go[NS], dk[NS];
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
@@ -464,7 +464,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
             for (int s = 0; s < NOUT; ++s) {
               const float v = s < NS ? dk[s] : 0.f;
               R[s * WTILE + tid] = v;
-              gr[s * WTILE + tid] = v;
+              if (!CUT_SAVES) gr[s * WTILE + tid] = v;
             }
           }
           // MLP transpose: product p takes the cotangent g of layer p's output
@@ -489,7 +489,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
                                     for (int jj = 0; jj < 4; ++jj)
                                       acc[i][jj] *= (bits >> (4 * i + jj)) & 1u ? 1.f : 0.f;
                                   store_tile<RT>(gz, n0, sq, rows, acc);
-                                  store_tile<RT>(gt_l, n0, sq, rows, acc);
+                                  if (!CUT_SAVES) store_tile<RT>(gt_l, n0, sq, rows, acc);
                                 });
               g = gz;
             } else {
@@ -538,7 +538,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
 
       // ---- phase 3: the interval's weight and bias cotangents ----
       __syncthreads();  // every stage's rows are written
-      for (int l = 0; l <= L; ++l) {
+      for (int l = CUT_OUTER ? L + 1 : 0; l <= L; ++l) {
         const int K = l == 0 ? in_pad : H, N = l < L ? H : NOUT;
         float* D = part + layer_offset(l, in_pad, H);
         float* Db = part + bias_off + l * H;
@@ -572,6 +572,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
     }
     __syncthreads();
   }
+  if (CUT_SWEEP) __pipeline_wait_prior(0);  // phase 1 fetched a layer for the sweep left out
 }
 
 template <bool BF16, int RT, bool STAGED>

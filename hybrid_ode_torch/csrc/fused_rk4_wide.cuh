@@ -36,6 +36,22 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block can get on
 constexpr int DENSE_UNROLL = 8;     // k steps per trip of a product's loop (4: 3% slower)
 static_assert(NTHREADS / WTILE * 2 == NOUT, "dense_out gives every thread two of the NOUT rows");
 
+// Timing cuts: built with -DFUSED_RK4_CUT=<bits> a kernel leaves work out, and
+// its time against the whole kernel's says what that work costs
+// (kernel_cuts.py at the repository's root builds and times them). Its outputs
+// are then wrong. The default, 0, compiles to the code without any of it.
+//   1  the adjoint does not save its operands to scratch (phases 1 and 2)
+//   2  the adjoint leaves out its reverse sweep (phase 2)
+//   4  the adjoint leaves out the weight and bias cotangents (phase 3)
+//   8  dense_w loads its operands from shared memory only at every 4th k
+#ifndef FUSED_RK4_CUT
+#define FUSED_RK4_CUT 0
+#endif
+constexpr bool CUT_SAVES = FUSED_RK4_CUT & 1;
+constexpr bool CUT_SWEEP = FUSED_RK4_CUT & 2;
+constexpr bool CUT_OUTER = FUSED_RK4_CUT & 4;
+constexpr bool CUT_LOADS = FUSED_RK4_CUT & 8;
+
 // Floats of layer l's weights, and their offset in the packed layout.
 __host__ __device__ inline int layer_floats(int l, int in_pad, int H, int L) {
   return l == 0 ? in_pad * H : (l < L ? H * H : H * NOUT);
@@ -127,17 +143,19 @@ __device__ __forceinline__ void dense_w(const float* __restrict__ W, const float
     // rows [R0, R1) of the tile, every k
     auto rows = [&](auto r0, auto r1) {
       constexpr int R0 = decltype(r0)::value, R1 = decltype(r1)::value;
+      float wv[RT], av[4];
 #pragma unroll DENSE_UNROLL
       for (int k = 0; k < K; ++k) {
-        float wv[RT];
+        if (!CUT_LOADS || k % 4 == 0) {
 #pragma unroll
-        for (int q = R0 / 4; q < R1 / 4; ++q) {
-          const float4 w = w4[k * n4 + q];
-          wv[4 * q] = w.x; wv[4 * q + 1] = w.y; wv[4 * q + 2] = w.z; wv[4 * q + 3] = w.w;
+          for (int q = R0 / 4; q < R1 / 4; ++q) {
+            const float4 w = w4[k * n4 + q];
+            wv[4 * q] = w.x; wv[4 * q + 1] = w.y; wv[4 * q + 2] = w.z; wv[4 * q + 3] = w.w;
+          }
+          const float4 a = a4[k * WSQ];
+          av[0] = operand<BF16>(a.x); av[1] = operand<BF16>(a.y);
+          av[2] = operand<BF16>(a.z); av[3] = operand<BF16>(a.w);
         }
-        const float4 a = a4[k * WSQ];
-        const float av[4] = {operand<BF16>(a.x), operand<BF16>(a.y), operand<BF16>(a.z),
-                             operand<BF16>(a.w)};
 #pragma unroll
         for (int i = R0; i < R1; ++i)
 #pragma unroll

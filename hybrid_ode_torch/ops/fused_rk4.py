@@ -97,6 +97,10 @@ _BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "--split-compile", "0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: further nvcc arguments of the libraries the wrappers launch. Empty but in
+#: kernel_cuts.py, which sets -DFUSED_RK4_CUT=<bits> (csrc/fused_rk4_wide.cuh)
+#: to time the kernels with a part left out.
+KERNEL_DEFINES: Tuple[str, ...] = ()
 
 
 def _round_up(n: int, m: int) -> int:
@@ -522,11 +526,12 @@ def _headers() -> List[Path]:
     return sorted(_CSRC.glob("*.cuh"))
 
 
-def build_library() -> Dict[str, Tuple[Path, str]]:
+def build_library(defines: Sequence[str] = ()) -> Dict[str, Tuple[Path, str]]:
     """Compile every csrc/*.cu into its own library in `hybrid_ode_torch/build/`
-    unless a build of these exact sources and headers is there; the nvcc
-    runs start together. Returns {source stem: (path, nvcc output)}."""
-    h = hashlib.sha256()
+    unless a build of these exact sources and headers (and `defines`, further
+    nvcc arguments) is there; the nvcc runs start together. Returns
+    {source stem: (path, nvcc output)}."""
+    h = hashlib.sha256("\0".join(defines).encode())
     for src in _sources() + _headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     tag = h.hexdigest()[:16]
@@ -537,7 +542,7 @@ def build_library() -> Dict[str, Tuple[Path, str]]:
         if not so.exists():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             procs[src.stem] = (so, tmp, subprocess.Popen(
-                [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_find_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for stem, (so, tmp, proc) in procs.items():
         out, _ = proc.communicate()
@@ -553,9 +558,13 @@ def build_library() -> Dict[str, Tuple[Path, str]]:
     return built
 
 
-@functools.lru_cache(maxsize=1)
 def _libraries() -> Dict[str, ctypes.CDLL]:
-    libs = {stem: ctypes.CDLL(str(so)) for stem, (so, _) in build_library().items()}
+    return _load_libraries(tuple(KERNEL_DEFINES))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_libraries(defines: Tuple[str, ...]) -> Dict[str, ctypes.CDLL]:
+    libs = {stem: ctypes.CDLL(str(so)) for stem, (so, _) in build_library(defines).items()}
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = libs["fused_rk4_fwd"].fused_rk4_fwd
     fwd.argtypes = [p] * 9 + [i] * 10 + [p]
@@ -655,10 +664,19 @@ def bwd_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps:
               mlp_dtype: str = "f32", device=None) -> BwdSizes:
     """Tile, grid and per-block buffer sizes of a hand-adjoint launch on these
     shapes, asked of the library: Python holds no copy of a kernel constant."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, mlp_dtype == "bf16", index)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, index: int) -> BwdSizes:
+    """The library's answer for one shape on card `index`, asked once."""
     out = (ctypes.c_longlong * 5)()
-    with torch.cuda.device(device):
+    with torch.cuda.device(index):
         err = _libraries()["fused_rk4_bwd"].fused_rk4_bwd_grid(
-            B, C, in_pad, hidden, n_layers, substeps, int(mlp_dtype == "bf16"), out)
+            B, C, in_pad, hidden, n_layers, substeps, int(bf16), out)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd_grid failed: cudaError {err}")
     return BwdSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]))
@@ -790,7 +808,9 @@ def _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pv
         raise RuntimeError(f"fused_rk4_bwd_vjp_grid failed: cudaError {err}")
     n_w = pw.flat.numel()
     tile = ctypes.c_int(0)
-    lib.fused_rk4_bwd_vjp_tile(ctypes.byref(tile))
+    err = lib.fused_rk4_bwd_vjp_tile(ctypes.byref(tile))
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd_vjp_tile failed: cudaError {err}")
     stage = (in_pad + L * H) * tile.value  # floats of one stage's saved features + activations
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     ybar0, dflat = empty((B, 6)), empty((n_w,))

@@ -7,9 +7,10 @@ What Python adds for that is tested here on the CPU:
     every layer once more as (out, in) row-major; the copy round-trips to the
     packed layers (`_unflatten`) and multiplies like them;
   * `_bwd_workspace`: the buffers allocated for a launch from the sizes the
-    adjoint's library reports, against a pure-Python statement of the
-    kernel's formula (the library itself answers only on a card: the
-    `cuda`-marked test, and chip_smoke.py on every run);
+    adjoint's library reports. The sizes here come from chip_smoke.py's
+    pure-Python statement of the kernel's formula, the one the library is
+    held to on a card (by chip_smoke.py on every run, and by the
+    `cuda`-marked test); partials must be the packed weights and biases;
   * batches of 2, tile - 1 and tile + 1 samples through `fused_rk4_hybrid`
     (on the CPU the plain versions) against the JAX kernels in interpret
     mode, gradients by the JAX suite's `_rel_err < 1e-5`, the trajectory to
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import expected_bwd_sizes
 from hybrid_ode_tpu.models import hybrid as jhyb
 from hybrid_ode_tpu.ops import pallas_rk4 as jfused
 from hybrid_ode_torch.ops import fused_rk4 as tfused
@@ -37,7 +39,6 @@ CTX_PARAMS = ("G_b", "I_b", "Glu_b")
 _WIDE = Path(tfused.__file__).resolve().parents[1] / "csrc" / "fused_rk4_wide.cuh"
 #: samples per tile, read from the kernels' header: Python keeps no copy
 TILE = int(re.search(r"constexpr int WTILE = (\d+);", _WIDE.read_text()).group(1))
-N_THREADS = 256
 
 
 def _rel_err(a, b):
@@ -80,20 +81,6 @@ def test_transposed_weight_copy_round_trips_and_multiplies(in_dim, hidden, n_lay
     assert off == both.numel()
 
 
-def _expected_sizes(B, in_pad, H, L, substeps, blocks):
-    """The hand adjoint's launch sizes from its formulas (fused_rk4_bwd.cu,
-    `bwd_layout`): per stage a block saves in_pad + L*H rows of inputs and
-    L*H + 8 rows of output cotangents, TILE floats each, and one ReLU-mask word
-    per thread tile and layer; a thread tile has 8 rows where that gives every
-    thread one, else 4, by TILE / 4 sample quads."""
-    stages = 4 * substeps
-    rt = 8 if (H // 8) * (TILE // 4) >= N_THREADS else 4
-    mask_words = -(-H // rt) * (TILE // 4)
-    scratch = stages * TILE * ((in_pad + L * H) + (L * H + 8)) + stages * L * mask_words
-    partials = in_pad * H + (L - 1) * H * H + H * 8 + L * H + 8
-    return tfused.BwdSizes(TILE, min(-(-B // TILE), blocks), scratch, partials, True)
-
-
 SHAPES = [(B, C, H, L, s) for B in (2, TILE - 1, TILE + 1, 8192)
           for C, H, L, s in ((0, 16, 2, 1), (16, 128, 4, 4), (4, 20, 1, 2), (0, 64, 4, 4))]
 
@@ -103,12 +90,13 @@ def test_bwd_workspace_matches_the_kernel_formula(B, C, H, L, substeps):
     rng = np.random.default_rng(0)
     pw = tfused._pack_weights(_random_mlp(rng, 9 + C, H, L), L)
     n_w = pw.flat.numel()
-    sizes = _expected_sizes(B, pw.in_pad, pw.hidden, L, substeps, blocks=132)
-    assert sizes.partials == n_w, "the formula's partials are the packed weights and biases"
+    tiles, scratch_floats, partials_floats = expected_bwd_sizes(B, pw.in_pad, pw.hidden, L,
+                                                                substeps, TILE)
+    assert partials_floats == n_w, "the formula's partials are the packed weights and biases"
+    sizes = tfused.BwdSizes(TILE, min(tiles, 132), scratch_floats, partials_floats, True)
     partials, scratch = tfused._bwd_workspace(sizes, n_w, "meta")
     assert partials.shape == (sizes.grid, n_w) and partials.dtype == torch.float32
-    assert scratch.shape == (sizes.grid, sizes.scratch) and scratch.dtype == torch.float32
-    assert sizes.grid == min(-(-B // TILE), 132)
+    assert scratch.shape == (sizes.grid, scratch_floats) and scratch.dtype == torch.float32
     with pytest.raises(RuntimeError, match="partials"):
         tfused._bwd_workspace(sizes._replace(partials=n_w + 4), n_w, "meta")
 
@@ -121,10 +109,10 @@ def test_cuda_library_reports_the_formula_sizes(B, C, H, L, substeps):
     in_pad = -(-(9 + C) // 8) * 8
     got = tfused.bwd_sizes(B, C, in_pad, H, L, substeps)
     blocks = torch.cuda.get_device_properties(0).multi_processor_count
-    want = _expected_sizes(B, in_pad, H, L, substeps, blocks)
+    tiles, *want = expected_bwd_sizes(B, in_pad, H, L, substeps, TILE)
     assert got.tile == tfused.fwd_tile() == TILE
-    assert (got.scratch, got.partials) == (want.scratch, want.partials)
-    assert got.grid == want.grid or (got.grid % blocks == 0 and got.grid < -(-B // TILE))
+    assert [got.scratch, got.partials] == want
+    assert got.grid == tiles or (got.grid % blocks == 0 and got.grid < tiles)
 
 
 def _case(context, n_layers, B, T=5, H=16, seed=0):
