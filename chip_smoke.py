@@ -8,8 +8,10 @@ the last line:
   2. build    - compile csrc/fused_rk4_fwd.cu, csrc/fused_rk4_bwd.cu and
                 csrc/fused_rk4_bwd_vjp.cu with nvcc (sm_90a), all at once;
                 ptxas registers / spills of each; the tile, grid, scratch and
-                partials sizes the adjoint library reports against a
-                pure-Python statement of its formula over a grid of shapes
+                partials sizes both adjoint libraries report (and the second
+                derivation's shared memory and route, both schedules)
+                against pure-Python statements of their formulas over a grid
+                of shapes
   3. kernel   - the fused RK4 forward kernel against its plain PyTorch
                 version on the card: the accuracy checkpoint at full width on
                 a cohort of 8192 windows (T=61, substeps=4, H=128, 16 context
@@ -17,7 +19,10 @@ the last line:
                 params 'mul', params 'abs'), the 'mul' case at B = 2, tile - 1
                 and tile + 1 (the library says its tile) and a case too wide
                 for the staged route (H=200); tolerance rtol=atol=2e-4, the
-                JAX suite's fused-vs-XLA tolerance
+                JAX suite's fused-vs-XLA tolerance. Both adjoints must take
+                the staged route at the cohort's widths (the second
+                derivation in both schedules, also at the r2 checkpoint's
+                params-mode widths) and the other one at H=200
   3b. bwd     - the adjoint kernel against its plain version: the same model
                 on the cohort's first 1024 windows and the three small cases
                 (B=1000, T=13), cotangent gbar from numpy (seed 0). Every
@@ -33,10 +38,11 @@ the last line:
                 'chained') against its plain version (transposes from torch
                 autograd) on the same inputs and with 3b's limits; on the
                 small cases 'hand' against 'recompute' to 1e-5 as well. The
-                probes on the full-width and the 'mul' case: probe_yw's
-                ybar0, dW, db and probe_y's ybar0 equal 'chained''s, every
-                output a probe leaves out is exactly 0; 'recompute' twice on
-                the same inputs is bitwise equal
+                probes on the full-width and the 'mul' case, probe_yw also at
+                B = 2, tile - 1, tile + 1 and H=200: probe_yw's ybar0, dW, db
+                and probe_y's ybar0 equal 'chained''s, every output a probe
+                leaves out is exactly 0; 'recompute' and 'chained' each twice
+                on the same inputs are bitwise equal
   3d. bf16    - mlp_dtype='bf16': the three kernels against their plain
                 versions on the 'mul' small case (limit 1e-4), at full width
                 over the first 7 grid points (limit 1e-3) and over all 61 (no
@@ -55,7 +61,9 @@ the last line:
                 (use_pallas) on the seed-42 split; the backward kernel must
                 have launched >= 3 times, every loss be finite, final_model
                 reload, and the first step's loss and gradient norm match the
-                JAX package's CPU values to 1e-4
+                JAX package's CPU values to 1e-4; then init_hybrid_params and
+                train_model (1 epoch, from scratch) with no device argument
+                must give tensors on the card
   4c. identify - test-time identification with every launch count at 0:
                 identify_context for ID_STEPS steps on the seed-42 test split
                 with checkpoints/accuracy_benchmark_r2 (use_pallas,
@@ -150,15 +158,17 @@ BWD_SMALL_RTOL, BWD_FULL_RTOL = 1e-5, 1e-4
 # the f32 kernel (a kernel that rounds nothing) is on the same inputs.
 BF16_SMALL_RTOL, BF16_SHORT_RTOL = 1e-4, 1e-3
 BF16_SHORT_T = 7
-# the two kernels' times before their redesign for Hopper, at the cohort shape
-# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): printed beside this
-# run's times and written to chip_smoke.json, not part of the kernels line,
-# which holds only what this run measured
-PREVIOUS_MS = {"fused_rk4_fwd": 68.289, "fused_rk4_bwd": 205.865}
+# the kernels' times before their redesign for Hopper, at the cohort shape on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): printed beside
+# this run's times as not measured in this run and written to chip_smoke.json,
+# not part of the kernels line, which holds only what this run measured
+PREVIOUS_MS = {"fused_rk4_fwd": 68.289, "fused_rk4_bwd": 205.865,
+               "fused_rk4_bwd_vjp": 250.506, "fused_rk4_bwd_vjp_chained": 211.708}
 PROBES = ("probe_y", "probe_yw", "probe_y_mlp", "probe_y_mech", "probe_fwd1", "probe_fwd2")
 # NVIDIA H100 SXM data sheet, 700 W: f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+SMEM_LIMIT = 232448  # bytes of shared memory a block can get on sm_90
 # operations per sample outside the MLP, counted from the kernel's formulas:
 # mechanistic drift + residual add + stage state + control interpolation per
 # stage evaluation, and the RK4 combination per step
@@ -362,11 +372,11 @@ def compare_leaves(a, b, label, limit, names=None):
         fail(f"{label}: {', '.join(bad)} disagree")
 
 
-def check_probes(packed, T, substeps, label, idx, mode, chained):
-    """Every probe of the second-derivation kernel on these inputs: what it
+def check_probes(packed, T, substeps, label, idx, mode, chained, probes=PROBES):
+    """The probes of the second-derivation kernel on these inputs: what each
     computes equals 'chained', what it leaves out is exactly 0."""
     traj, gbar = bwd_inputs(packed, T, substeps, idx, mode)
-    for probe in PROBES:
+    for probe in probes:
         with torch.no_grad():
             out = bwd_leaves(fused_rk4.fused_rk4_bwd_vjp(traj, gbar, *packed[1:], substeps, idx,
                                                          mode, "f32", probe), packed[5])
@@ -497,6 +507,34 @@ def expected_bwd_sizes(B, in_pad, H, L, substeps, tile):
     return -(-B // tile), scratch, partials
 
 
+def expected_vjp_sizes(B, C, in_pad, H, L, substeps, schedule, tile):
+    """The second-derivation adjoint's launch sizes from its formulas: (tiles,
+    scratch floats per block, partials floats per block, shared-memory bytes
+    per block, staged). Shared memory holds, `tile` floats per row, the
+    features (in_pad rows), two hidden buffers (H and max(H, in_pad) rows), the
+    residual (8), the 17 effective parameters and their cotangents, the
+    context cotangents (C) and, for 'recompute', 6 rows of substep input state
+    per substep; then a 32-float parameter row; then two buffers. They hold a
+    layer of weights each (the largest) when that fits (staged); otherwise
+    what is left, at most the weight cotangents' widest layer pair in chunks
+    of 32 columns padded to 36. A stage slot of scratch holds in_pad + 2 L H + 8
+    rows; 'recompute' keeps 4 slots, 'chained' 4 per substep."""
+    recompute = schedule == "recompute"
+    hb = max(H, in_pad)
+    acts = 4 * (tile * (in_pad + H + hb + 8 + 2 * 17 + C + (6 * substeps if recompute else 0))
+                + 32)
+    kn = hb + H  # the contraction's widest pair of layer sides
+    want = max(in_pad * H, 8 * H, H * H if L > 1 else 0, 8 * kn)
+    staged = acts + 8 * want <= SMEM_LIMIT
+    cap = want if staged else min((SMEM_LIMIT - acts) // 8 // 4 * 4, 36 * kn)
+    if acts >= SMEM_LIMIT or cap < 8 * kn:
+        raise ValueError(f"widths C={C} in_pad={in_pad} H={H} do not fit a block")
+    slot = tile * (in_pad + 2 * L * H + 8)
+    partials = in_pad * H + (L - 1) * H * H + H * 8 + L * H + 8
+    return (-(-B // tile), (4 if recompute else 4 * substeps) * slot, partials,
+            acts + 8 * cap, staged)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -538,8 +576,18 @@ def main():
                 fail(f"adjoint sizes for B={B} C={C} in_pad={in_pad} H={H} L={L} substeps="
                      f"{substeps}: library {got}, formula {tiles} tiles, {want}")
             n_shapes += 1
-    print(f"sizes: tile {tile}; the adjoint library's grid, scratch and partials sizes equal "
-          f"the formula's on {n_shapes} shapes ({sms} SMs) ok")
+            for sched in ("recompute", "chained"):
+                got = fused_rk4.vjp_sizes(B, C, in_pad, H, L, substeps, sched)
+                tiles, *want = expected_vjp_sizes(B, C, in_pad, H, L, substeps, sched, got.tile)
+                grid_ok = got.grid == tiles or (got.grid < tiles and got.grid % sms == 0)
+                if got.tile != tile or not grid_ok or [got.scratch, got.partials, got.smem,
+                                                       got.staged] != want:
+                    fail(f"second-derivation sizes for B={B} C={C} in_pad={in_pad} H={H} L={L} "
+                         f"substeps={substeps} '{sched}': library {got}, formula {tiles} tiles, "
+                         f"{want}")
+    print(f"sizes: tile {tile}; both adjoint libraries' grid, scratch, partials (and the second "
+          f"derivation's shared memory and route, both schedules) equal the formula's on "
+          f"{n_shapes} shapes ({sms} SMs) ok")
 
     # 3. kernel vs plain
     state, meta = load_checkpoint(str(CKPT))
@@ -576,12 +624,24 @@ def main():
         k = fused_rk4.fused_rk4_fwd(*p, 2, idx, m)
         torch.cuda.synchronize()
         max_abs[name] = compare(k, fused_rk4._fwd_plain(*p, 2, idx, m), f"small {name}")
-    routes = {"cohort": fused_rk4.bwd_sizes(COHORT, C, packed[5].in_pad, packed[5].hidden,
-                                            config.nn_layers, SUBSTEPS).staged,
+    in_pad, hid = packed[5].in_pad, packed[5].hidden
+    routes = {"cohort": fused_rk4.bwd_sizes(COHORT, C, in_pad, hid, config.nn_layers,
+                                            SUBSTEPS).staged,
               "wide": fused_rk4.bwd_sizes(100, 3, 16, 200, 2, 2).staged}
+    # the second derivation at the cohort's widths (features mode) and at the r2
+    # checkpoint's (params mode: 3 context rows, layer 0 takes 9 inputs padded to 16)
+    for sched in ("recompute", "chained"):
+        for name, args in (("cohort", (C, in_pad)), ("params", (3, 16))):
+            got = fused_rk4.vjp_sizes(COHORT, *args, hid, config.nn_layers, SUBSTEPS, sched)
+            routes[f"vjp_{sched}_{name}"] = got.staged
+            print(f"route: second derivation '{sched}' at the {name} widths: staged "
+                  f"{got.staged}, {got.smem} B of shared memory per block")
+        routes[f"vjp_{sched}_wide"] = fused_rk4.vjp_sizes(100, 3, 16, 200, 2, 2, sched).staged
     print(f"routes: weights staged through shared memory at the cohort's widths: "
-          f"{routes['cohort']}; at H=200: {routes['wide']}")
-    if not routes["cohort"] or routes["wide"]:
+          f"{routes['cohort']}; at H=200: {routes['wide']}; second derivation: "
+          + ", ".join(f"{k[4:]} {v}" for k, v in routes.items() if k.startswith("vjp_")))
+    if (not all(v for k, v in routes.items() if not k.endswith("wide"))
+            or any(v for k, v in routes.items() if k.endswith("wide"))):
         fail("the cohort's widths must take the staged route and H=200 the other")
     report["max_abs_err"] = max_abs
 
@@ -619,14 +679,18 @@ def main():
                                BWD_SMALL_RTOL)
             elif name == "mul":
                 check_probes(p, 13, 2, "small mul", idx, m, leaves)
+            elif name in edge:
+                check_probes(p, 13, 2, f"small {name}", idx, m, leaves, ("probe_yw",))
     check_probes(packed_head, T, SUBSTEPS, "full width", (), "mul", full_leaves)
-    # 'recompute' reduces the parameter cotangents inside the block: order-fixed?
-    twice = [fused_rk4.fused_rk4_bwd_vjp(traj_head, gbar_head, *packed_head[1:], SUBSTEPS, (),
-                                         "mul", "f32", "recompute") for _ in range(2)]
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(*twice)):
-        fail("'recompute' gave different outputs on the same inputs")
-    print("'recompute' twice on the same full-width inputs: every output bitwise equal ok")
+    # per-block slices summed in block order, and 'recompute' reduces the
+    # parameter cotangents inside the block: the same inputs, the same bits
+    for impl in ("recompute", "chained"):
+        twice = [fused_rk4.fused_rk4_bwd_vjp(traj_head, gbar_head, *packed_head[1:], SUBSTEPS,
+                                             (), "mul", "f32", impl) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*twice)):
+            fail(f"'{impl}' gave different outputs on the same inputs")
+        print(f"'{impl}' twice on the same full-width inputs: every output bitwise equal ok")
     report["vjp_max_abs_err"] = vjp_max_abs
 
     # 3d. mlp_dtype='bf16': the three kernels vs their plain versions
@@ -714,6 +778,19 @@ def main():
               f"(limit {REF_RTOL})")
         if rel > REF_RTOL:
             fail(f"first train step {key} disagrees with the JAX reference")
+    # the parameter constructors and train_model from scratch run on the card
+    # unless asked otherwise
+    fresh = init_hybrid_params(torch.Generator().manual_seed(0), config_from_dict(cfg))
+    if not all(v.is_cuda for g in fresh.values() for v in g.values()):
+        fail("init_hybrid_params without a device placed a tensor off the card")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        from_scratch = train_model(cfg, train_ds, val_ds, ckpt_dir, None, max_epochs=1)
+    if (not all(v.is_cuda for g in from_scratch.params.values() for v in g.values())
+            or not np.isfinite(from_scratch.history["step_loss"]).all()):
+        fail("train_model from scratch did not train on the card with finite losses")
+    print(f"init_hybrid_params(generator, config) without a device: every tensor on the card; "
+          f"train_model from scratch, 1 epoch on the default device: step losses "
+          f"{from_scratch.history['step_loss']} ok")
     report.update(train_history=hist, train_launches=train_launches, train_s=train_s)
 
     # 4c. test-time identification through the fused kernels, launch counts from 0
@@ -854,7 +931,9 @@ def main():
                       f"{vjp_bound[i][1]}, plain {vjp_plain_s[i] * 1e3:.3f} ms once at B={BWD_B})"
                       for i in ("recompute", "chained"))
           + f"; 'recompute' adds one forward pass per interval, {schedule_ops_ms:.3f} ms of "
-          "operations at f32 peak, outside its bound"
+          "operations at f32 peak, outside its bound; before the redesign 'recompute' "
+          f"{PREVIOUS_MS['fused_rk4_bwd_vjp']} ms, 'chained' "
+          f"{PREVIOUS_MS['fused_rk4_bwd_vjp_chained']} ms (not measured in this run)"
           + "; probes: " + ", ".join(f"{i} {vjp_ms[i]:.3f} ms" for i in PROBES))
     decomposition = {
         "one forward pass (probe_fwd1)": vjp_ms["probe_fwd1"],
@@ -897,9 +976,9 @@ def main():
     step_ms = time_ms(step128, 2, 20)
     bench_cfg = config_from_dict({"model": {"solver": "rk4", "nn_hidden": 64, "substeps": 4,
                                             "use_pallas": True}})
-    p64 = init_hybrid_params(torch.Generator().manual_seed(0), bench_cfg)
+    p64 = init_hybrid_params(torch.Generator().manual_seed(0), bench_cfg, device=device)
     p64["nn"]["w4"] = 0.01 * torch.randn(p64["nn"]["w4"].shape,
-                                         generator=torch.Generator().manual_seed(2))
+                                         generator=torch.Generator().manual_seed(2)).to(device)
     step64_ms = time_ms(train_step_fn(p64, bench_train_batch(device), bench_cfg, lambda2), 2, 20)
     b64 = kernel_ops(p64["nn"], 4, 64, COHORT, T, SUBSTEPS)
     train_bounds = {"H128_C16": bound_ms + bwd_bound_ms,

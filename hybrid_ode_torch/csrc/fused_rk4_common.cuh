@@ -1,9 +1,9 @@
 // Shared by the three fused RK4 kernels (fused_rk4_fwd.cu, fused_rk4_bwd.cu,
-// fused_rk4_bwd_vjp.cu): the tile constants, the parameter order, and the
-// forward stage evaluation (`dense`, `mech`), which all three must take
-// operation for operation alike so that an adjoint rebuilds exactly the
-// states and ReLU masks the forward took, and `sum_rows`, which adds the
-// adjoints' per-block slices in block order.
+// fused_rk4_bwd_vjp.cu): the block constants, the parameter order, the
+// mechanistic drift `mech`, which all three must take operation for operation
+// alike so that an adjoint rebuilds exactly the states the forward took (the
+// MLP products they share are in fused_rk4_wide.cuh), and `sum_rows`, which
+// adds the adjoints' per-block slices in block order.
 //
 // BF16 (template argument, `mlp_dtype='bf16'`): every MLP product reads its
 // activation operand rounded to bf16 (round to nearest even) and accumulates
@@ -17,8 +17,6 @@
 
 namespace fused_rk4 {
 
-constexpr int TILE = 32;       // samples per tile
-constexpr int SQ = TILE / 4;   // sample quads
 constexpr int NTHREADS = 256;  // threads per block
 constexpr int NP = 17;         // mechanistic parameters, PARAM_ORDER
 constexpr int NS = 6;          // states
@@ -34,55 +32,6 @@ template <bool BF16>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
   else return x;
-}
-
-// out[n][s] = act(sum_k W[k][n] * in[k][s] + bias[n]) for n < N, s < TILE,
-// also stored to save[n][s] when save is not null. W is (K, N) row-major, N a
-// multiple of 4; in / out / save are [rows][TILE]. A thread computes 4 output
-// rows x 4 samples, reading a float4 of weights and of activations per k.
-template <bool BF16>
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ bias,
-                                      const float* in, float* out, float* save,
-                                      int K, int N, bool relu) {
-  const int sq = threadIdx.x % SQ;
-  const int n4 = N / 4;
-  const float4* a4 = reinterpret_cast<const float4*>(in) + sq;
-  for (int rq = threadIdx.x / SQ; rq < n4; rq += NTHREADS / SQ) {
-    const float4* w4 = reinterpret_cast<const float4*>(W) + rq;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 w = __ldg(w4 + k * n4);
-      const float4 a = a4[k * SQ];
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-      const float av[4] = {operand<BF16>(a.x), operand<BF16>(a.y), operand<BF16>(a.z),
-                           operand<BF16>(a.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
-    }
-    const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + rq);
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][j] + bv[i];
-        if (relu) v[j] = v[j] < 0.f ? 0.f : v[j];  // NaN propagates, as max(x, 0)
-      }
-      const float4 o = make_float4(v[0], v[1], v[2], v[3]);
-      const int idx = (4 * rq + i) * SQ + sq;
-      reinterpret_cast<float4*>(out)[idx] = o;
-      if (save) reinterpret_cast<float4*>(save)[idx] = o;
-    }
-  }
 }
 
 // Mechanistic drift with GD = 0 (so k_GE = k_GE0); the GE row is zero.

@@ -40,8 +40,8 @@
 //   * The last layer (8 rows) is spread over all threads, two rows and one
 //     sample each, K sequential.
 //   * Accumulation order: k ascending from 0 by fmaf, then the bias, then the
-//     ReLU, exactly as fused_rk4_common.cuh's `dense` does on its 32-sample
-//     tile, so the adjoint kernels rebuild bitwise equal pre-activations.
+//     ReLU (fused_rk4_wide.cuh), so the adjoint kernels, which take the same
+//     products, rebuild bitwise equal pre-activations.
 //   * Lanes past B are masked (no loads, no stores), not padded.
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): the

@@ -1,13 +1,14 @@
-// Shared by the forward kernel (fused_rk4_fwd.cu) and the hand adjoint
-// (fused_rk4_bwd.cu): a 64-sample tile, MLP weights staged layer by layer in
-// shared memory, and the register-tiled products on them.
+// Shared by the three fused RK4 kernels (fused_rk4_fwd.cu and both adjoints,
+// fused_rk4_bwd.cu and fused_rk4_bwd_vjp.cu): a 64-sample tile, MLP weights
+// staged layer by layer in shared memory, and the register-tiled forward
+// products on them (each adjoint keeps its own transposed products).
 //
-// The invariant with fused_rk4_common.cuh's `dense` (which
-// fused_rk4_bwd_vjp.cu keeps, on its 32-sample tile) is the accumulation
-// order, not the tiling: every pre-activation is
+// The invariant is the accumulation order, not the tiling: every
+// pre-activation is
 //   acc = 0; for k ascending: acc = fmaf(W[k][n], in[k][s], acc); acc + bias[n]
-// whatever thread computes it and wherever W[k][n] is read from, so the three
-// kernels rebuild bitwise equal pre-activations and ReLU masks.
+// then the ReLU, whatever thread computes it and wherever W[k][n] is read
+// from, so the adjoints rebuild bitwise the forward's pre-activations and
+// ReLU masks.
 //
 // Weights: one block per SM holds two buffers of one layer each (64 KB at
 // H = 128). While layer l multiplies out of one buffer, cp.async (16 bytes

@@ -21,6 +21,8 @@ from typing import Dict, Mapping, Optional, Union
 
 import torch
 
+from hybrid_ode_torch.utils.device import resolve_device
+
 DEFAULT_ODE_PARAMS: Dict[str, float] = {
     "a_GI": 0.0104,
     "k_I": 0.025,
@@ -48,9 +50,11 @@ BAYES_ODE_PARAM_NAMES = ("a_GI", "k_I", "rho", "E_max", "EC_50", "V_max", "K_m",
 def make_ode_params(
     overrides: Optional[Mapping[str, float]] = None,
     dtype: torch.dtype = torch.float32,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, torch.Tensor]:
-    """Parameter dict of 0-d tensors, user overrides merged onto defaults."""
+    """Parameter dict of 0-d tensors, user overrides merged onto defaults,
+    on `device` (CUDA unless the caller asks for the CPU; raises without CUDA)."""
+    device = resolve_device(device)
     params = dict(DEFAULT_ODE_PARAMS)
     if overrides:
         params.update({k: float(v) for k, v in overrides.items()})

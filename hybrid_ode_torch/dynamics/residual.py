@@ -17,6 +17,8 @@ from typing import Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from hybrid_ode_torch.utils.device import resolve_device
+
 Activation = {
     "relu": torch.relu,
     "tanh": torch.tanh,
@@ -32,10 +34,12 @@ def init_mlp_params(
     output_dim: int = 6,
     n_layers: int = 4,
     dtype: torch.dtype = torch.float32,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, torch.Tensor]:
     """Hidden layers Xavier-normal with gain 0.1, zero biases; output layer
-    all zeros. Draws from `generator` (a CPU generator), then moves."""
+    all zeros. Draws from `generator` (a CPU generator), then moves to
+    `device` (CUDA unless the caller asks for the CPU; raises without CUDA)."""
+    device = resolve_device(device)
     dims = [input_dim] + [hidden_dim] * n_layers + [output_dim]
     params: Dict[str, torch.Tensor] = {}
     for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):

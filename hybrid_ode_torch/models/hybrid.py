@@ -31,6 +31,7 @@ from hybrid_ode_torch.dynamics.residual import (
     residual_apply,
 )
 from hybrid_ode_torch.solvers.api import odeint
+from hybrid_ode_torch.utils.device import resolve_device
 
 STATE_NAMES = ("Glucose", "Insulin", "Glucagon", "GLP1", "GE", "FFA")
 
@@ -106,11 +107,14 @@ def init_hybrid_params(
     ode_params: Optional[Mapping[str, float]] = None,
     dtype: torch.dtype = torch.float32,
     norm_stats: Optional[Tuple] = None,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{'ode': 17 scalars, 'nn': zero-output MLP} (+ 'enc', 'norm', k_ex,
-    S_I as the config asks), drawn from `generator`. The numbers differ from
-    the JAX initialiser's (other RNG); the structure and scales match."""
+    S_I as the config asks), drawn from `generator` (a CPU generator) and
+    placed on `device`: CUDA unless the caller asks for the CPU, raising
+    where there is none. The numbers differ from the JAX initialiser's
+    (other RNG); the structure and scales match."""
+    device = resolve_device(device)
     feat_ctx = (config.context_dim
                 if config.context_points > 0 and config.context_mode == "features" else 0)
     nn = init_mlp_params(generator, input_dim=3 + config.n_states + feat_ctx,

@@ -12,11 +12,11 @@ with ctypes:
     second time, as the reverse sweep that differentiating one RK4 substep
     generates, in two schedules (`bwd_impl='recompute'`, `'chained'`) and
     six timing probes (`'probe_*'`, partial gradients by design).
-The forward kernel and the hand adjoint work on 64-sample tiles with the MLP
-weights staged layer by layer in shared memory (`csrc/fused_rk4_wide.cuh`);
-the second derivation keeps the 32-sample tile of `csrc/fused_rk4_common.cuh`.
+All three work on 64-sample tiles with the MLP weights staged layer by
+layer in shared memory and share the forward products
+(`csrc/fused_rk4_wide.cuh`); each adjoint keeps its own transposes.
 Every tile, grid and buffer size comes from the libraries (`fwd_tile`,
-`bwd_sizes`): this module holds no copy of a kernel constant.
+`bwd_sizes`, `vjp_sizes`): this module holds no copy of a kernel constant.
 Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`,
 `_bwd_vjp_plain`), the same function in torch ops on the same (features,
 batch) layout; `_bwd_vjp_plain` takes its transposes from torch autograd.
@@ -577,10 +577,8 @@ def _load_libraries(defines: Tuple[str, ...]) -> Dict[str, ctypes.CDLL]:
     bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 12 + [p]
     bwd_lib.fused_rk4_bwd.restype = i
     vjp_lib = libs["fused_rk4_bwd_vjp"]
-    vjp_lib.fused_rk4_bwd_vjp_grid.argtypes = [i] * 6 + [ctypes.POINTER(i)]
-    vjp_lib.fused_rk4_bwd_vjp_grid.restype = i
-    vjp_lib.fused_rk4_bwd_vjp_tile.argtypes = [ctypes.POINTER(i)]
-    vjp_lib.fused_rk4_bwd_vjp_tile.restype = i
+    vjp_lib.fused_rk4_bwd_vjp_sizes.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    vjp_lib.fused_rk4_bwd_vjp_sizes.restype = i
     vjp_lib.fused_rk4_bwd_vjp.argtypes = [p] * 17 + [i] * 15 + [p]
     vjp_lib.fused_rk4_bwd_vjp.restype = i
     return libs
@@ -651,6 +649,18 @@ class BwdSizes(NamedTuple):
     staged: bool        # weights staged through shared memory (the fast route)
 
 
+class VjpSizes(NamedTuple):
+    """What the second-derivation adjoint's library reports for a launch
+    (fused_rk4_bwd_vjp_sizes)."""
+
+    tile: int           # samples per block tile
+    grid: int           # blocks to launch
+    scratch: int        # floats of scratch per block (stage slots x floats per slot)
+    partials: int       # floats of weight-cotangent partials per block
+    staged: bool        # weights staged through shared memory (the fast route)
+    smem: int           # bytes of shared memory per block
+
+
 def fwd_tile() -> int:
     """Samples per block tile of the forward kernel, as its library reports it."""
     tile = ctypes.c_int(0)
@@ -660,14 +670,19 @@ def fwd_tile() -> int:
     return tile.value
 
 
+def _card_index(device) -> int:
+    """The CUDA card `device` names (the current one when it names none): the
+    libraries' sizes are cached per card."""
+    index = None if device is None else torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
 def bwd_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps: int,
               mlp_dtype: str = "f32", device=None) -> BwdSizes:
     """Tile, grid and per-block buffer sizes of a hand-adjoint launch on these
     shapes, asked of the library: Python holds no copy of a kernel constant."""
-    index = None if device is None else torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    return _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, mlp_dtype == "bf16", index)
+    return _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, mlp_dtype == "bf16",
+                      _card_index(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -682,8 +697,31 @@ def _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, index: int)
     return BwdSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]))
 
 
-def _bwd_workspace(sizes: BwdSizes, n_w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(partials (grid, n_w), scratch (grid, floats per block)) for a launch."""
+def vjp_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps: int,
+              bwd_impl: str = "recompute", mlp_dtype: str = "f32", device=None) -> VjpSizes:
+    """Tile, grid, per-block buffer sizes, route and shared memory of a
+    second-derivation launch on these shapes, asked of the library."""
+    recompute = VJP_IMPLS[bwd_impl][0] == "recompute"
+    return _vjp_sizes(B, C, in_pad, hidden, n_layers, substeps, recompute, mlp_dtype == "bf16",
+                      _card_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _vjp_sizes(B, C, in_pad, hidden, n_layers, substeps, recompute: bool, bf16: bool,
+               index: int) -> VjpSizes:
+    """The library's answer for one shape and schedule on card `index`, asked once."""
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(index):
+        err = _libraries()["fused_rk4_bwd_vjp"].fused_rk4_bwd_vjp_sizes(
+            B, C, in_pad, hidden, n_layers, substeps, int(not recompute), int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_bwd_vjp_sizes failed: cudaError {err}")
+    return VjpSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]), int(out[5]))
+
+
+def _bwd_workspace(sizes, n_w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(partials (grid, n_w), scratch (grid, floats per block)) for a launch
+    of either adjoint (`sizes`: BwdSizes or VjpSizes)."""
     if sizes.partials != n_w:
         raise RuntimeError(f"the library's partials hold {sizes.partials} floats per block, "
                            f"the packed weights {n_w}")
@@ -789,7 +827,8 @@ def _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pv
     """Launch the second-derivation adjoint kernel; returns what
     `_bwd_vjp_plain` returns. Weight cotangents go through per-block slices
     of `partials` summed in block order, as in `_bwd_cuda`; for 'recompute'
-    so do the parameter cotangents, one (32,) row per block."""
+    so do the parameter cotangents, one (32,) row per block. The library
+    says how many blocks it wants and how much scratch each needs."""
     global fused_rk4_bwd_vjp_launches
     schedule, diff_w, diff_p, parts, fwd_passes = VJP_IMPLS[bwd_impl]
     T, _, B = traj.shape
@@ -801,24 +840,14 @@ def _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pv
     H, L, in_pad = pw.hidden, pw.n_layers, pw.in_pad
     bf16 = int(mlp_dtype == "bf16")
     recompute = schedule == "recompute"
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        err = lib.fused_rk4_bwd_vjp_grid(B, C, in_pad, H, substeps, bf16, ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"fused_rk4_bwd_vjp_grid failed: cudaError {err}")
+    sizes = vjp_sizes(B, C, in_pad, H, L, substeps, bwd_impl, mlp_dtype, dev)
     n_w = pw.flat.numel()
-    tile = ctypes.c_int(0)
-    err = lib.fused_rk4_bwd_vjp_tile(ctypes.byref(tile))
-    if err != 0:
-        raise RuntimeError(f"fused_rk4_bwd_vjp_tile failed: cudaError {err}")
-    stage = (in_pad + L * H) * tile.value  # floats of one stage's saved features + activations
+    partials, scratch = _bwd_workspace(sizes, n_w, dev)
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     ybar0, dflat = empty((B, 6)), empty((n_w,))
     dp = None if recompute else empty((N_PARAMS, B))
-    dpv, dpv_part = (empty((32,)), empty((grid.value, 32))) if recompute else (None, None)
+    dpv, dpv_part = (empty((32,)), empty((sizes.grid, 32))) if recompute else (None, None)
     dctx = empty((B, C)) if C else None
-    partials = empty((grid.value, n_w))
-    scratch = empty((grid.value, (4 if recompute else 4 * substeps) * stage))
     cidx = _cidx(ctx_param_idx, dev)
     weights = _kernel_weights(pw, mlp_dtype)
     flags = (1 * diff_w + 2 * diff_p + 4 * (parts == "mech") + 8 * (parts == "mlp"))
@@ -829,7 +858,7 @@ def _bwd_vjp_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pv
             _ptr(weights), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dpv),
             _ptr(dpv_part), _ptr(dctx), _ptr(dflat), _ptr(partials), _ptr(scratch),
             B, T, C, in_pad, H, L, substeps, n_cp, int(ctx_param_mode == "abs"), bf16,
-            grid.value, n_w, int(not recompute), flags, fwd_passes, stream)
+            sizes.grid, n_w, int(not recompute), flags, fwd_passes, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd_vjp launch failed: cudaError {err}")
     fused_rk4_bwd_vjp_launches += 1

@@ -225,7 +225,8 @@ def train_model(
             ode_overrides = dict(ode_overrides or {})
             for i, name in enumerate(("G_b", "I_b", "Glu_b")):
                 ode_overrides[name] = float(train_ds.state_mean[i])
-        params = init_hybrid_params(generator, config, ode_overrides, norm_stats=norm_stats)
+        params = init_hybrid_params(generator, config, ode_overrides, norm_stats=norm_stats,
+                                    device=dev)
 
     batch_size = tcfg["batch_size"]
     epochs = max_epochs if max_epochs is not None else tcfg["epochs"]

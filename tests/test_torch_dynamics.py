@@ -77,7 +77,7 @@ def test_safe_pow_gradient_finite_at_zero():
 def test_ode_params_and_steady_state_match_jax():
     over = {"G_b": 6.0, "k_L": 0.03}
     jp = _np(jode.make_ode_params(over))
-    tp = params_to_numpy(tode.make_ode_params(over))
+    tp = params_to_numpy(tode.make_ode_params(over, device="cpu"))
     assert jp.keys() == tp.keys()
     for k in jp:
         np.testing.assert_array_equal(jp[k], tp[k])
@@ -123,12 +123,33 @@ def test_residual_apply_and_l2_match_jax():
 
 def test_init_mlp_params_structure():
     g = torch.Generator().manual_seed(0)
-    tp = tres.init_mlp_params(g, input_dim=9, hidden_dim=32, n_layers=3)
+    tp = tres.init_mlp_params(g, input_dim=9, hidden_dim=32, n_layers=3, device="cpu")
     jp = jres.init_mlp_params(jax.random.PRNGKey(0), input_dim=9, hidden_dim=32, n_layers=3)
     assert {k: tuple(v.shape) for k, v in tp.items()} == {k: v.shape for k, v in jp.items()}
     assert float(tp["w3"].abs().max()) == 0.0
     # xavier-normal std with gain 0.1
     assert abs(float(tp["w1"].std()) - 0.1 * np.sqrt(2 / 64)) < 0.005
+
+
+@pytest.mark.parametrize("name", ["make_ode_params", "init_mlp_params", "init_hybrid_params"])
+def test_parameter_constructors_default_to_the_card(name):
+    """Like every entry point, the constructors place their tensors on CUDA
+    unless the caller passes device='cpu'; without CUDA the default raises
+    and names the way out."""
+    build = {"make_ode_params": lambda **kw: {"ode": tode.make_ode_params(**kw)},
+             "init_mlp_params": lambda **kw: {"nn": tres.init_mlp_params(
+                 torch.Generator().manual_seed(0), input_dim=9, hidden_dim=8, n_layers=2, **kw)},
+             "init_hybrid_params": lambda **kw: thyb.init_hybrid_params(
+                 torch.Generator().manual_seed(0), thyb.HybridConfig(nn_hidden=8, nn_layers=2),
+                 **kw)}[name]
+    leaves = lambda tree: [v for d in tree.values() for v in d.values()]  # noqa: E731
+    if torch.cuda.is_available():
+        assert all(v.is_cuda for v in leaves(build()))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    on_cpu = leaves(build(device="cpu"))
+    assert on_cpu and all(v.device.type == "cpu" for v in on_cpu)
 
 
 def _model(context, exog, norm, rng, H=16):
@@ -211,7 +232,7 @@ def test_init_hybrid_params_structure_and_flat_views_match_jax(context, exog):
     cfg, jp = _model(context, exog, True, np.random.default_rng(5))
     tcfg = thyb.HybridConfig(**dataclasses.asdict(cfg))
     tp = thyb.init_hybrid_params(torch.Generator().manual_seed(0), tcfg,
-                                 norm_stats=(Y_SCALE, 0.5 * Y_SCALE))
+                                 norm_stats=(Y_SCALE, 0.5 * Y_SCALE), device="cpu")
     shapes = lambda tree: {g: {k: tuple(np.shape(v)) for k, v in d.items()}  # noqa: E731
                            for g, d in tree.items()}
     assert shapes(params_to_numpy(tp)) == shapes(jp)

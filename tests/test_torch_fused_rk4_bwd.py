@@ -118,7 +118,7 @@ def test_bwd_plain_matches_autograd_through_fwd_plain(context):
     nn = {}
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
         nn[f"w{i}"], nn[f"b{i}"] = rnd(a, b, scale=0.3), rnd(b, scale=0.1)
-    ode = {k: torch.tensor(float(v), dtype=f64) for k, v in make_ode_params().items()}
+    ode = {k: torch.tensor(float(v), dtype=f64) for k, v in make_ode_params(device="cpu").items()}
     y0 = torch.tensor([8.0, 100.0, 90.0, 20.0, 0.5, 1.2], dtype=f64) * (1 + 0.1 * rnd(B, 6))
     ts_t = torch.tensor(np.cumsum(rng.uniform(0.05, 0.2, (B, T)), 1).T.copy())
     meal_t, tvns_t = rnd(T, B).abs(), rnd(T, B).abs()
