@@ -212,7 +212,15 @@ def forward(params: Mapping[str, Any], y0: torch.Tensor, ts: torch.Tensor,
     kw.update(solver_overrides)
     if kw["mode"] == "sync":
         kw["mode"] = "scan"  # batch synchronisation is meaningless for one trajectory
+    if kw["adjoint"] == "backsolve" and controls is not None and y0.ndim > 1:
+        # the backsolve adjoint integrates per-sample cotangents: the
+        # controls are per sample, the params shared by the batch
+        kw["args_axes"] = (None, Controls(ts=0, signals={k: 0 for k in controls.signals}))
     return odeint(field, y0, ts, (params, controls), **kw)
+
+
+def _has_step_stats(config: HybridConfig) -> bool:
+    return config.solver not in ("rk4", "euler") and config.adjoint != "backsolve"
 
 
 def batched_forward(params: Mapping[str, Any], y0: torch.Tensor, ts: torch.Tensor,
@@ -227,8 +235,34 @@ def batched_forward(params: Mapping[str, Any], y0: torch.Tensor, ts: torch.Tenso
     if config.use_pallas and not solver_overrides:
         return _fused_forward(params, y0, ts, controls, config)
     if solver_overrides.get("mode", config.mode) == "sync":
-        raise NotImplementedError(
-            "mode='sync' is not ported yet: ROADMAP Queue A 10 (solvers/sync.py)")
+        # batch-synchronised adaptive stepping: one shared controller for the
+        # batch, two-pass gradients on the accepted mesh (solvers/sync.py)
+        from hybrid_ode_torch.solvers.sync import odeint_erk_sync
+        from hybrid_ode_torch.solvers.tableaus import TABLEAUS
+
+        if config.solver not in TABLEAUS:
+            raise ValueError(
+                f"mode='sync' supports the explicit adaptive solvers "
+                f"{sorted(TABLEAUS)}, got {config.solver!r}")
+
+        def field(t, y, args):
+            p, c = args
+            return hybrid_field(t, y, p, c, config)
+
+        # span='auto' free-runs dopri5 across output points with CONTD5 dense
+        # output; the time-gridded control signals make their kinks (boluses,
+        # stepwise rates) forced step boundaries
+        time_signals = None
+        if controls is not None:
+            time_signals = [v for v in controls.signals.values()
+                            if v.ndim >= 1 and v.shape[-1] == ts.shape[-1]]
+        return odeint_erk_sync(
+            field, y0, ts, (params, controls), TABLEAUS[config.solver],
+            rtol=config.rtol, atol=config.atol,
+            max_steps_per_interval=config.max_steps_per_interval,
+            stop_signals=time_signals,
+            return_stats=solver_overrides.get("return_stats", False),
+        )
     return forward(params, y0, ts, controls, config, **solver_overrides)
 
 
@@ -729,8 +763,14 @@ def hybrid_loss(
     ts = batch["time_points"]
     controls = with_context(params, batch, controls_from_batch(batch), config)
     mask = batch.get("mask")
-    preds = batched_forward(params, y0, ts, controls, config)
-    solver_success = torch.ones((), dtype=preds.dtype, device=preds.device)  # fixed-step solvers
+    # solver health: the share of windows whose every adaptive interval
+    # reached its end within the step budget (the train loop warns below 1)
+    if _has_step_stats(config) and not config.use_pallas:
+        preds, stats = batched_forward(params, y0, ts, controls, config, return_stats=True)
+        solver_success = torch.mean(stats.success.to(preds.dtype))
+    else:
+        preds = batched_forward(params, y0, ts, controls, config)
+        solver_success = torch.ones((), dtype=preds.dtype, device=preds.device)
 
     w_state = batch.get("loss_weights")
     se = (preds - obs) ** 2

@@ -1,1 +1,1 @@
-"""Fixed-grid ODE solvers."""
+"""ODE solvers: fixed-grid RK4 / Euler and the adaptive explicit Runge-Kutta family."""

@@ -6,7 +6,9 @@
 Trains one model on CUDA unless `--device cpu`; writes runs/<experiment>/
 (metrics.jsonl) and checkpoints/<experiment>/ (config.yaml, best_model,
 final_model) under the working directory. Reading and writing the YAML
-config needs PyYAML. `--vi`, `--mcmc` and `--ensemble K>1` are not ported.
+config needs PyYAML. `--vi` and `--mcmc` train a point model when the merged
+config sets `ablation.no_bayes` (as the JAX CLI does) and are otherwise not
+ported, nor is `--ensemble K>1`.
 """
 
 from __future__ import annotations
@@ -50,24 +52,32 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
-    if args.vi and not args.no_bayes:
-        raise NotImplementedError("--vi is not ported yet: ROADMAP Queue A 13")
-    if args.mcmc and not args.no_bayes:
-        raise NotImplementedError("--mcmc is not ported yet: ROADMAP Queue A 13")
-    if args.ensemble > 1:
-        raise NotImplementedError("--ensemble K>1 is not ported yet: ROADMAP Queue A 11")
 
     from hybrid_ode_torch.data.dataset import create_data_arrays, split_dataset
     from hybrid_ode_torch.train.loop import train_model
     from hybrid_ode_torch.utils.config import load_config, merge_cli_overrides, save_config
     from hybrid_ode_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     cfg = merge_cli_overrides(load_config(args.config), args)
+    # as the JAX CLI: the merged config's no_bayes (flag or YAML) turns
+    # --vi / --mcmc into point-model training
+    bayes = not cfg["ablation"]["no_bayes"]
+    if args.vi and bayes:
+        raise NotImplementedError("--vi is not ported yet: ROADMAP Queue A 13")
+    if args.mcmc and bayes:
+        raise NotImplementedError("--mcmc is not ported yet: ROADMAP Queue A 13")
+    if args.ensemble > 1:
+        raise NotImplementedError("--ensemble K>1 is not ported yet: ROADMAP Queue A 11")
+
+    device = resolve_device(args.device)
     if args.experiment_name:
         experiment = args.experiment_name
     else:
         experiment = f"hybrid_ode_nn_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+        if args.vi:
+            experiment += "_vi"
+        elif args.mcmc:
+            experiment += "_mcmc"
         if cfg["ablation"]["no_nn"]:
             experiment += "_no_nn"
         if cfg["ablation"]["no_bayes"]:

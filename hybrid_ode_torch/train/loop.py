@@ -210,7 +210,8 @@ def train_model(
     resume_from: a checkpoint written by this function; restores params AND
     optimizer state and continues from the epoch after the saved one.
     history holds per-epoch train_loss / val_loss / epoch_time and per-step
-    step_loss / grad_norm."""
+    step_loss / grad_norm / solver_success (the share of windows whose
+    adaptive solve stayed within its step budget; 1 for fixed-grid solvers)."""
     dev = resolve_device(device)
     tcfg, mcfg, abl = cfg["training"], cfg["model"], cfg["ablation"]
     config = config_from_dict(cfg)
@@ -264,21 +265,29 @@ def train_model(
     patience = tcfg.get("early_stopping_patience", 20)
     patience_counter = 0
     history = {"train_loss": [], "val_loss": [], "epoch_time": [], "step_loss": [],
-               "grad_norm": []}
+               "grad_norm": [], "solver_success": []}
     epoch = -1
 
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         total, nb = 0.0, 0
+        min_success = 1.0
         for batch in batch_iterator(train_ds, batch_size, shuffle=True, seed=seed + epoch):
             batch, _ = pad_batch(batch, batch_size)
             state, metrics = train_step(state, batch_to_tensors(batch, dev), generator)
             loss = float(metrics["loss"])
             history["step_loss"].append(loss)
             history["grad_norm"].append(float(metrics["grad_norm"]))
+            history["solver_success"].append(float(metrics["solver_success"]))
+            min_success = min(min_success, history["solver_success"][-1])
             total += loss
             nb += 1
         train_loss = total / max(nb, 1)
+        if min_success < 1.0:
+            # an adaptive interval exhausted its step budget somewhere this
+            # epoch; raise max_steps_per_interval or loosen the tolerances
+            logger.warning("epoch %d: solver step budget exhausted in >=1 batch "
+                           "(min success fraction %.3f)", epoch, min_success)
 
         vtotal, vb = 0.0, 0
         for batch in batch_iterator(val_ds, batch_size, shuffle=False):
