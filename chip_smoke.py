@@ -82,22 +82,26 @@ the last line:
                 with checkpoints/4gi_baseline_full (dopri5, scan, 8 steps
                 per interval, H=64): (a) evaluate_checkpoint on the seed-42
                 test split, every metric against the JAX package's CPU value
-                to 1e-4; (b) train_model 2 epochs from its params, the first
+                to 1e-4; (b) train_model 1 epoch from its params, the first
                 update's loss and gradient norm against JAX CPU constants to
                 1e-4, solver_success 1; (c) the 8192-window cohort through
                 batched_forward in scan, while, sync (global span), dense and
-                dop853 while: median host ms of 5, accepted / rejected steps,
-                success and host syncs each; while equal to scan to 1e-5, sync
-                within 30 x rtol_eff of a dop853 f64 run (rtol 1e-10) on the
-                first 64 windows; dense (ill-conditioned across the cohort's
-                meal impulses, printed there) held in f64 with the controls at
-                0 to the same run on the host CPU, 1e-6 and equal step counts;
-                one scan interval profiled (launches, device busy share);
-                (d) the gradients of one MSE on 256 windows through backsolve
-                and through the discrete scan adjoint: ODE parameters to the
-                JAX suite's rtol 1e-3 / atol 1e-8, MLP leaves to _rel_err
-                1e-2; (e) one scan-mode train step at the cohort shape,
-                median of 5
+                dop853 while: median host ms of 5 (dop853: 3), accepted /
+                rejected steps, success and host syncs each; while equal to
+                scan to 1e-5, sync within 30 x rtol_eff of a dop853 f64 run
+                (rtol 1e-10) on the first 64 windows (the other modes' distance
+                printed); dense, whose free steps are chaotic across the meal
+                boluses, run in f64 on those windows and held step by step to
+                the host CPU's arithmetic on the card's own step inputs
+                (dense_replay: inputs, results and outputs 1e-12, error norms
+                1e-6, no accept decision differs, equal step counts), the free
+                runs on both devices printed; one scan interval profiled
+                (launches, device busy share); (d) the gradients of one MSE
+                on 256 windows through backsolve and through the discrete scan
+                adjoint: ODE parameters to the JAX suite's rtol 1e-3 / atol
+                1e-8, MLP leaves to _rel_err BACKSOLVE_NN_RTOL (3 x the largest
+                of backsolve_subsets.py's readings); (e) one scan-mode train
+                step at the cohort shape, median of 3 after one untimed
   5. timing   - CUDA events, median of 20: forward and backward kernels at
                 the cohort shape, one train step (fwd kernel + bwd kernel +
                 loss + Adam) at the cohort shape and at bench.py's train
@@ -112,6 +116,7 @@ Then one JSON line with the three kernels, the card's name and power limit, and
 last {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -145,7 +150,8 @@ from hybrid_ode_torch.models.hybrid import (
     with_context,
 )
 from hybrid_ode_torch.ops import fused_rk4
-from hybrid_ode_torch.solvers import explicit
+from hybrid_ode_torch.solvers import dense, explicit
+from hybrid_ode_torch.solvers.tableaus import TABLEAUS
 from hybrid_ode_torch.train.loop import TrainState, _to_params, make_optimizer, make_train_step, train_model
 from hybrid_ode_torch.utils.checkpoint import load_checkpoint
 from hybrid_ode_torch.utils.convert import params_from_numpy
@@ -198,15 +204,26 @@ REF_ADAPTIVE_METRICS = {
     "checkpoint_val_loss": 0.5244815349578857,
 }
 REF_ADAPTIVE_TRAIN_LOSS, REF_ADAPTIVE_GRAD_NORM = 1.1237022876739502, 5.447945594787598
-ADAPTIVE_REPS = 5      # timed runs per adaptive mode (median)
+ADAPTIVE_REPS = 5      # timed runs per adaptive mode (median), 3 for dop853
+ADAPTIVE_STEP_REPS = 3  # timed scan train steps (median) after one untimed
 REF_SAMPLES = 64       # windows of the cohort held against a tight f64 run
-# backsolve vs discrete adjoint: the ODE parameters are held elementwise to the
-# JAX suite's limit (rtol 1e-3, atol 1e-8; test_backsolve_adjoint_close_to_discrete
-# compares exactly those 17 scalars). An MLP leaf has elements near 0, where an
-# elementwise rtol means nothing, so it is held by _rel_err, to ten times that
-# rtol: the two adjoints differ by the backward solve's own steps, and in f32
-# the leaves' sums over 256 windows x 60 intervals come to about 1e-3
-BACKSOLVE_NN_RTOL = 1e-2
+# backsolve vs discrete adjoint on the cohort's first 256 windows: the ODE
+# parameters are held elementwise to the JAX suite's limit (rtol 1e-3, atol
+# 1e-8; test_backsolve_adjoint_close_to_discrete compares exactly those 17
+# scalars, on a smooth f64 problem at rtol 1e-9). It holds on these windows
+# (0.316 of it on an H100) but is no property of the method at this
+# tolerance: windows 256-511 and 512-767 read 1.25 and 2.17 on the card and
+# on the host CPU alike (backsolve_subsets.py), and the JAX package has the
+# same gap (tests/test_torch_real_windows.py). An MLP leaf has elements near
+# 0, where an elementwise rtol means nothing, so it is held by _rel_err, to 3x
+# the largest of those three subsets' readings on the card (7.26e-4, 7.52e-4,
+# 3.86e-4)
+BACKSOLVE_NN_RTOL = 2.3e-3
+# dense output in f64, the card against the host CPU's arithmetic on the card's
+# own step inputs (chip_smoke.dense_replay): step inputs, results and outputs
+# (_rel_err), and error norms relative to max(norm, the clamp floor)
+DENSE_REPLAY_RTOL = 1e-12
+DENSE_ERR_NORM_RTOL = 1e-6
 RTOL = ATOL = 2e-4
 COHORT = 8192          # bench.py's cohort size
 SUBSTEPS = 4
@@ -554,6 +571,135 @@ def bench_train_batch(device):
                                                       "tVNS": t(np.zeros_like(meal))}}
 
 
+def backsolve_vs_discrete(params, config, batch, ctrl, sel):
+    """Parameter gradients of one MSE on the windows `sel` through
+    adjoint='backsolve' and through the discrete scan adjoint: (the worst ODE
+    parameter's |b - d| / (1e-8 + 1e-3 |d|), the JAX suite's
+    test_backsolve_adjoint_close_to_discrete limit on those 17 scalars, with
+    its name, d and b; the worst MLP leaf's _rel_err; seconds of each)."""
+    y0, ts = batch["initial_state"][sel], batch["time_points"][sel]
+    ctrl_b = Controls(ts=ts, signals={k: v[sel] for k, v in ctrl.signals.items()})
+    grads, seconds = {}, {}
+    for adjoint in ("discrete", "backsolve"):
+        leaves = {(g, k): v.clone().requires_grad_(True) for g, grp in params.items()
+                  for k, v in grp.items()}
+        p = {g: {k: leaves[(g, k)] for k in grp} for g, grp in params.items()}
+        t0 = time.perf_counter()
+        preds = batched_forward(p, y0, ts, ctrl_b, dataclasses.replace(config, adjoint=adjoint))
+        loss = torch.mean((preds - batch["observations"][sel]) ** 2)
+        grads[adjoint] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        seconds[adjoint] = time.perf_counter() - t0
+    worst_ode, worst_nn = (0.0, None, None, None), 0.0
+    for key, gd in grads["discrete"].items():
+        gb, gd = grads["backsolve"][key].double(), gd.double()
+        if key[0] == "ode":
+            r = float((gb - gd).abs() / (1e-8 + 1e-3 * gd.abs()))
+            worst_ode = max(worst_ode, (r, key[1], float(gd), float(gb)), key=lambda w: w[0])
+        else:
+            worst_nn = max(worst_nn, rel_err(gd, gb))
+    return worst_ode, worst_nn, seconds
+
+
+@contextlib.contextmanager
+def dense_steps(wrap):
+    """While the block runs, every trial step of the dense-output solvers
+    goes through wrap(step_fn, *step_inputs)."""
+    solve = dense._dense_solve
+
+    def wrapped(step_fn, *args, **kwargs):
+        return solve(lambda *inputs: wrap(step_fn, *inputs), *args, **kwargs)
+
+    dense._dense_solve = wrapped
+    try:
+        yield
+    finally:
+        dense._dense_solve = solve
+
+
+def _host_stats(st):
+    return explicit.StepStats(*(v.cpu() for v in st))
+
+
+def to_host(params):
+    return {g: {k: v.cpu() for k, v in grp.items()} for g, grp in params.items()}
+
+
+def dense_replay(params, y0, ts, ctrl, config):
+    """Dense output on the card with every trial step recorded, then the same
+    solve on the host CPU with each trial step's results replaced by the
+    card's, so the host's loop walks the card's steps. Worst differences
+    (_rel_err unless said): the host loop's inputs to each step (t, y, f(t, y),
+    h; theta follows from them) against the card's; each step's results (y1,
+    f(t+h, y1), the outputs' interpolants) computed by the host from those
+    inputs against the card's; the error norms, relative to max(norm, the
+    floor below which the step factor is clamped at MAX_FACTOR, so the last
+    digits of a smaller norm change no step); the accept decisions that
+    differ; the outputs; whether the step counts are equal."""
+    record = []
+
+    def on_card(step_fn, *inputs):
+        res = step_fn(*inputs)
+        record.append(([x.cpu() for x in inputs[:4]], [x.cpu() for x in res]))
+        return res
+
+    with dense_steps(on_card), torch.no_grad():
+        ys, st = batched_forward(params, y0, ts, ctrl, config, return_stats=True)
+    steps = iter(record)
+    floor = (explicit.SAFETY / explicit.MAX_FACTOR) ** (TABLEAUS[config.solver].error_order + 1)
+    worst = {"inputs": 0.0, "results": 0.0, "err_norm": 0.0, "flips": 0}
+
+    def on_host(step_fn, *inputs):
+        card_in, card_res = next(steps)
+        res = step_fn(*inputs)
+        worst["inputs"] = max([worst["inputs"]] + [rel_err(c, x) for c, x in zip(card_in, inputs)])
+        worst["results"] = max([worst["results"]] + [rel_err(card_res[i], res[i])
+                                                     for i in (0, 1, 3)])
+        e_card, e_host = card_res[2], res[2]
+        worst["err_norm"] = max(worst["err_norm"], float(
+            ((e_card - e_host).abs() / e_host.clamp(min=floor)).max()))
+        worst["flips"] += int(((e_card <= 1.0) != (e_host <= 1.0)).sum())
+        return tuple(card_res)
+
+    ctrl_h = Controls(ts=ctrl.ts.cpu(), signals={k: v.cpu() for k, v in ctrl.signals.items()})
+    with dense_steps(on_host), torch.no_grad():
+        ys_h, st_h = batched_forward(to_host(params), y0.cpu(), ts.cpu(), ctrl_h, config,
+                                     return_stats=True)
+    st_c = _host_stats(st)
+    worst.update(trial_steps=len(record), err_floor=floor, outputs=rel_err(ys.cpu(), ys_h),
+                 steps_equal=bool((st_c.n_accepted == st_h.n_accepted).all()
+                                  and (st_c.n_rejected == st_h.n_rejected).all()),
+                 ys=ys, stats=st, trace=[(i[0], i[3], r[2]) for i, r in record])
+    return worst
+
+
+def dense_trace(run):
+    """run() with each dense trial step's (t, h, error norm) recorded:
+    (result, trace)."""
+    trace = []
+
+    def record(step_fn, *inputs):
+        res = step_fn(*inputs)
+        trace.append((inputs[0], inputs[3], res[2]))
+        return res
+
+    with dense_steps(record), torch.no_grad():
+        return run(), trace
+
+
+def divergence(trace_a, trace_b):
+    """Two dense runs' per-step (t, h, error norm) traces: the first trial
+    step at which the windows' largest relative difference of h exceeds each
+    of 0, 1e-12, 1e-9, 1e-6 and 1e-3, and the first at which an accept
+    decision differs. Growth over many steps is the chaotic controller; a
+    jump from 0 to a large difference at one step would be a fault."""
+    drift = [float(((a[1] - b[1]).abs() / a[1].abs()).max()) for a, b in zip(trace_a, trace_b)]
+    first = {f"{lv:g}": next((i for i, x in enumerate(drift) if x > lv), None)
+             for lv in (0.0, 1e-12, 1e-9, 1e-6, 1e-3)}
+    first["accept"] = next((i for i, (a, b) in enumerate(zip(trace_a, trace_b))
+                            if bool(((a[2] <= 1.0) != (b[2] <= 1.0)).any())), None)
+    return first
+
+
 def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
     """Phase 4d: the adaptive explicit solvers on `device` with the dopri5
     checkpoint; returns the report's entries. Fails on any check."""
@@ -572,16 +718,16 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
         fail(f"adaptive evaluation: {worst} disagrees with the JAX reference")
     out["eval"] = {"metrics": metrics, "seconds": eval_s, "worst_rel_err": rels[worst]}
 
-    # (b) training: the first update against JAX, then 2 epochs within budget
+    # (b) training: the first update against JAX, one epoch within budget
     state, meta = load_checkpoint(str(ADAPTIVE_CKPT))
     cfg = copy.deepcopy(meta["config"])
     with tempfile.TemporaryDirectory() as ckpt_dir:
         t0 = time.perf_counter()
         res = train_model(cfg, train_ds, val_ds, ckpt_dir, None, params=state["params"],
-                          max_epochs=2, device=device)
+                          max_epochs=1, device=device)
         train_s = time.perf_counter() - t0
     hist = res.history
-    print(f"adaptive (b): train_model 2 epochs in {train_s:.2f} s; step losses "
+    print(f"adaptive (b): train_model 1 epoch in {train_s:.2f} s; step losses "
           f"{hist['step_loss']}, grad norms {hist['grad_norm']}, solver_success "
           f"{hist['solver_success']}")
     for key, got, ref in (("loss", hist["step_loss"][0], REF_ADAPTIVE_TRAIN_LOSS),
@@ -605,13 +751,14 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
     ys, cohort = {}, {}
     for name, over in runs.items():
         cfg_r = dataclasses.replace(config, **over)
+        reps = 3 if name == "dop853 while" else ADAPTIVE_REPS
 
         def run():
             with torch.no_grad():
                 return batched_forward(params, y0, ts, ctrl, cfg_r, return_stats=True)
 
         times = []
-        for _ in range(ADAPTIVE_REPS):  # the first run's set-up is inside the median's reach
+        for _ in range(reps):  # the first run's set-up is inside the median's reach
             syncs = explicit.host_syncs
             t0 = time.perf_counter()
             ys[name], st = run()
@@ -623,13 +770,13 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
                 or not torch.isfinite(y).all()):
             fail(f"adaptive {name}: output of the wrong shape, device or not finite")
         acc, rej = st.n_accepted.double(), st.n_rejected.double()
-        cohort[name] = {"ms": statistics.median(times), "host_syncs": syncs,
+        cohort[name] = {"ms": statistics.median(times), "reps": reps, "host_syncs": syncs,
                         "accepted": float(acc.mean()), "rejected": float(rej.mean()),
                         "success": float(st.success.double().mean()),
                         "per_sample_stats": st.n_accepted.ndim > 0}
     for name, c in cohort.items():
         print(f"adaptive (c) ({smi}): {name} at B={n} T={ts.shape[1]} H={config.nn_hidden}: "
-              f"median {c['ms']:.1f} ms of {ADAPTIVE_REPS}; accepted {c['accepted']:.2f} "
+              f"median {c['ms']:.1f} ms of {c['reps']}; accepted {c['accepted']:.2f} "
               f"rejected {c['rejected']:.2f} per {'sample' if c['per_sample_stats'] else 'batch'}"
               f"; success {c['success']:.4f}; host syncs {c['host_syncs']}")
     # where a scan forward's time goes: one interval (8 masked trial steps)
@@ -670,66 +817,67 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
           + f" (limit for sync {limit:.2e} = 30 x rtol_eff)")
     if not cohort["sync"]["rel_err_vs_f64"] <= limit:
         fail("adaptive sync is farther than 30 x rtol_eff from the f64 reference")
-    # Dense output free-runs across the cohort's gridded meal impulses with no
-    # forced step boundary (as the JAX package's does; its own CPU run misses
-    # the f64 reference by a few percent too), and whether a step straddles an
-    # impulse turns on the last digits of an error norm: even in f64 the card
-    # and the host CPU then take other steps. So its accuracy there is printed,
-    # not held. What is held: with the control signals at 0 (a smooth field)
-    # dense output in f64 takes the same steps on the card as on the host CPU.
-    smooth = Controls(ts=ctrl64.ts, signals={k: torch.zeros_like(v)
-                                             for k, v in ctrl64.signals.items()})
+    # Dense output free-runs across the cohort's gridded meal boluses with no
+    # forced step boundary. Where a step's stages fall on a bolus's edge, a
+    # small shift of the step moves the error norm by orders of magnitude, so
+    # last-bit differences grow from step to step until an accept flips: the
+    # step sequence is chaotic there, in the JAX package as in the port
+    # (tests/test_torch_real_windows.py::test_dense_output_at_the_checkpoint_
+    # tolerance_is_ill_conditioned_in_both_packages). Free runs on two devices
+    # are then not comparable. The card's f64 run on these windows and
+    # controls is held step by step to the host CPU's arithmetic instead; the
+    # free runs are printed.
     cfg_d = dataclasses.replace(config, mode="dense")
-    with torch.no_grad():
-        d_dev, st_dev = batched_forward(p64, y0[sub].double(), ts[sub].double(), smooth, cfg_d,
-                                        return_stats=True)
-        d_cpu, st_cpu = batched_forward(
-            {g: {k: v.cpu() for k, v in grp.items()} for g, grp in p64.items()},
-            y0[sub].double().cpu(), ts[sub].double().cpu(),
-            Controls(ts=smooth.ts.cpu(), signals={k: v.cpu() for k, v in smooth.signals.items()}),
-            cfg_d, return_stats=True)
-    e = rel_err(d_cpu, d_dev.cpu())
-    same = bool((st_cpu.n_accepted == st_dev.n_accepted.cpu()).all()
-                and (st_cpu.n_rejected == st_dev.n_rejected.cpu()).all())
-    print(f"adaptive (c): dense in f64, controls at 0, on {device.type} vs the host CPU on the "
-          f"first {REF_SAMPLES} windows: _rel_err {e:.2e} (limit 1e-6), step counts equal: "
-          f"{same}")
-    if not (e <= 1e-6 and same):
-        fail("dense output on the card disagrees with the same f64 run on the host CPU")
-    cohort["dense"]["f64_smooth_device_vs_cpu"] = e
+    y64, ts64 = y0[sub].double(), ts[sub].double()
+    d = dense_replay(p64, y64, ts64, ctrl64, cfg_d)
+    print(f"adaptive (c): dense in f64 on the first {REF_SAMPLES} windows, {device.type} vs the "
+          f"host CPU step by step over {d['trial_steps']} trial steps: step inputs "
+          f"{d['inputs']:.2e} (limit {DENSE_REPLAY_RTOL:g}), step results {d['results']:.2e} "
+          f"(limit {DENSE_REPLAY_RTOL:g}), error norms {d['err_norm']:.2e} relative above "
+          f"{d['err_floor']:.2e} (limit {DENSE_ERR_NORM_RTOL:g}), accept decisions that differ "
+          f"{d['flips']} (limit 0), outputs {d['outputs']:.2e} (limit {DENSE_REPLAY_RTOL:g}), "
+          f"step counts equal: {d['steps_equal']}")
+    if not (d["inputs"] <= DENSE_REPLAY_RTOL and d["results"] <= DENSE_REPLAY_RTOL
+            and d["err_norm"] <= DENSE_ERR_NORM_RTOL and d["flips"] == 0
+            and d["outputs"] <= DENSE_REPLAY_RTOL and d["steps_equal"]):
+        fail("dense output on the card disagrees with the host CPU's arithmetic")
+    ctrl_h = Controls(ts=ctrl64.ts.cpu(), signals={k: v.cpu() for k, v in ctrl64.signals.items()})
+    free, traces = zip(*(dense_trace(lambda: batched_forward(
+        to_host(p64), y64.cpu() * (1.0 + eps), ts64.cpu(), ctrl_h, cfg_d, return_stats=True))
+        for eps in (0.0, 1e-15)))
+    same = lambda a, b: int(((a.n_accepted == b.n_accepted)  # noqa: E731
+                             & (a.n_rejected == b.n_rejected)).sum())
+    d["free_device_vs_host"] = rel_err(free[0][0], d["ys"].cpu())
+    d["free_host_vs_nudged_host"] = rel_err(free[0][0], free[1][0])
+    print(f"adaptive (c): dense in f64, free runs (printed, not held): {device.type} vs host CPU "
+          f"_rel_err {d['free_device_vs_host']:.2e}, "
+          f"{same(free[0][1], _host_stats(d['stats']))} of {REF_SAMPLES} windows with equal step "
+          f"counts; host CPU vs host CPU with y0 x (1 + 1e-15) "
+          f"{d['free_host_vs_nudged_host']:.2e}, "
+          f"{same(free[0][1], free[1][1])} of {REF_SAMPLES}")
+    for label, a, b in ((f"{device.type} vs host CPU", d["trace"], traces[0]),
+                        ("host CPU vs host CPU with y0 x (1 + 1e-15)", traces[0], traces[1])):
+        d[f"divergence {label}"] = first = divergence(a, b)
+        print(f"adaptive (c): dense free runs, {label}: first trial step at which h differs "
+              f"by more than " + ", ".join(f"{k}: {v}" for k, v in first.items() if k != "accept")
+              + f"; first at which an accept differs: {first['accept']}")
+    del d["ys"], d["stats"], d["trace"]
+    cohort["dense"]["f64_step_by_step"] = d
     out["cohort"] = cohort
 
     # (d) backsolve against the discrete adjoint on 256 windows
-    bs = slice(0, 256)
-    ctrl_b = Controls(ts=ts[bs], signals={k: v[bs] for k, v in ctrl.signals.items()})
-    grads, grad_s = {}, {}
-    for adjoint in ("discrete", "backsolve"):
-        leaves = {(g, k): v.clone().requires_grad_(True) for g, grp in params.items()
-                  for k, v in grp.items()}
-        p = {g: {k: leaves[(g, k)] for k in grp} for g, grp in params.items()}
-        t0 = time.perf_counter()
-        preds = batched_forward(p, y0[bs], ts[bs], ctrl_b,
-                                dataclasses.replace(config, adjoint=adjoint))
-        loss = torch.mean((preds - batch["observations"][bs]) ** 2)
-        grads[adjoint] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        grad_s[adjoint] = time.perf_counter() - t0
-    worst_ode, worst_nn = 0.0, 0.0
-    for key, gd in grads["discrete"].items():
-        gb = grads["backsolve"][key]
-        if key[0] == "ode":
-            # tests/test_solvers.py::test_backsolve_adjoint_close_to_discrete
-            if not torch.allclose(gb.double(), gd.double(), rtol=1e-3, atol=1e-8):
-                fail(f"backsolve gradient of {key} disagrees with the discrete adjoint")
-            worst_ode = max(worst_ode, float((gb - gd).abs() / (1e-8 + 1e-3 * gd.abs())))
-        else:
-            worst_nn = max(worst_nn, rel_err(gd, gb))
+    (worst_ode, name, gd, gb), worst_nn, grad_s = backsolve_vs_discrete(params, config, batch, ctrl,
+                                                                        slice(0, 256))
     print(f"adaptive (d): backsolve vs discrete scan gradients of one MSE on 256 windows: ODE "
-          f"parameters worst |b-d|/(1e-8+1e-3|d|)={worst_ode:.3f} (limit 1); MLP leaves worst "
-          f"_rel_err {worst_nn:.2e} (limit {BACKSOLVE_NN_RTOL}); {grad_s['discrete']:.2f} s "
-          f"discrete, {grad_s['backsolve']:.2f} s backsolve")
+          f"parameters worst |b-d|/(1e-8+1e-3|d|)={worst_ode:.3f} (limit 1; {name}: d={gd:.6e} "
+          f"b={gb:.6e}); MLP leaves worst _rel_err {worst_nn:.2e} (limit {BACKSOLVE_NN_RTOL}); "
+          f"{grad_s['discrete']:.2f} s discrete, {grad_s['backsolve']:.2f} s backsolve")
+    if not worst_ode <= 1.0:
+        fail("backsolve ODE-parameter gradients disagree with the discrete adjoint")
     if not worst_nn <= BACKSOLVE_NN_RTOL:
         fail("backsolve MLP gradients disagree with the discrete adjoint")
-    out["backsolve"] = {"worst_ode": worst_ode, "worst_nn": worst_nn, "seconds": grad_s}
+    out["backsolve"] = {"worst_ode": worst_ode, "worst_ode_param": [name, gd, gb],
+                        "worst_nn": worst_nn, "seconds": grad_s}
 
     # (e) one scan-mode dopri5 train step at the cohort shape
     train_batch = dict(batch, external_inputs=dict(ctrl.signals),
@@ -737,9 +885,10 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
                        loss_weights=torch.as_tensor(ds.loss_weights, device=device))
     step = train_step_fn(state["params"], train_batch, config, cfg["training"]["lambda2"],
                          device)
-    step_ms = time_ms(step, 0, ADAPTIVE_REPS)
+    step_ms = time_ms(step, 1, ADAPTIVE_STEP_REPS)
     print(f"adaptive (e) ({smi}): dopri5 scan train step at B={n} T={ts.shape[1]} "
-          f"H={config.nn_hidden}: median {step_ms:.1f} ms of {ADAPTIVE_REPS}")
+          f"H={config.nn_hidden}: median {step_ms:.1f} ms of {ADAPTIVE_STEP_REPS} after one "
+          f"untimed")
     out["train_step_ms"] = step_ms
     return out
 

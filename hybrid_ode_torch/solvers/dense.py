@@ -45,7 +45,14 @@ def _dense_solve(step_fn, f, y0, ts, args, error_order, rtol_e, atol_e, max_step
                  checkpoint_body, return_stats):
     """The masked free-running loop both methods share. step_fn(t, y, fy,
     h_eff, theta) -> (y1, f_new, err_norm, interp (..., T, n)), theta the
-    outputs' step fractions (..., T)."""
+    outputs' step fractions (..., T).
+
+    This is not `explicit._interval` with an output write: the two follow the
+    JAX package's two loops, which take other steps. After a step clipped to
+    the end, the interval loop keeps the natural step (max(h, h_eff *
+    factor)) where this one takes h_eff * factor; this one floors the step at
+    `tiny` so a finished sample's theta is never 0 / 0, and it is
+    checkpointed per trial step, the interval loop per output interval."""
     dtype = y0.dtype
     batch = y0.shape[:-1]
     ts = torch.as_tensor(ts, dtype=dtype, device=y0.device)

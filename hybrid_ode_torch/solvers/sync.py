@@ -19,8 +19,7 @@ If the batch needs more, the tail is dropped and `StepStats.success` is
 False.
 
 Batching is written out: the field takes y (B, n) and per-sample times
-(B,), so `args_axes` has no role; it is accepted for the JAX signature and
-ignored.
+(B,), so the JAX signature's `args_axes` has no role and is not taken.
 """
 
 from __future__ import annotations
@@ -68,7 +67,6 @@ def odeint_erk_sync(
     *,
     rtol: float = 1e-6,
     atol: float = 1e-8,
-    args_axes: Any = None,
     max_steps_per_interval: int = 32,
     total_step_budget: Optional[int] = None,
     span: str = "auto",
@@ -81,7 +79,6 @@ def odeint_erk_sync(
     Args:
         f: batched field `(t (B,), y (B, n), args) -> dy (B, n)`.
         ts: output times (B, T) per sample or (T,) shared, increasing.
-        args_axes: ignored (see the module docstring).
         max_steps_per_interval: pass-1 trial-step budget per output interval.
         total_step_budget: most accepted steps kept (default 4 * (T-1) for
             span='interval', (T-1) + 16 for span='global').
@@ -94,7 +91,6 @@ def odeint_erk_sync(
     Returns ys (B, T, n), and with return_stats batch-level StepStats
     (accepted / rejected shared steps; success = every interval reached its
     end and the budget held)."""
-    del args_axes
     dtype = y0.dtype
     B, n = y0.shape
     ts = torch.as_tensor(ts, dtype=dtype, device=y0.device)
