@@ -86,7 +86,7 @@ the last line:
                 update's loss and gradient norm against JAX CPU constants to
                 1e-4, solver_success 1; (c) the 8192-window cohort through
                 batched_forward in scan, while, sync (global span), dense and
-                dop853 while: median host ms of 5 (dop853: 3), accepted /
+                dop853 while: median host ms of 3 (dop853: 2), accepted /
                 rejected steps, success and host syncs each; while equal to
                 scan to 1e-5, sync within 30 x rtol_eff of a dop853 f64 run
                 (rtol 1e-10) on the first 64 windows (the other modes' distance
@@ -101,7 +101,24 @@ the last line:
                 adjoint: ODE parameters to the JAX suite's rtol 1e-3 / atol
                 1e-8, MLP leaves to _rel_err BACKSOLVE_NN_RTOL (3 x the largest
                 of backsolve_subsets.py's readings); (e) one scan-mode train
-                step at the cohort shape, median of 3 after one untimed
+                step at the cohort shape, timed after one untimed
+  4e. ensemble - the identified deep ensemble and the 4GI generator (plain
+                PyTorch; they launch none of the fused kernels, every count is
+                read 0 after them): (a) simulate_cohort (dopri5 'while', f32)
+                of 50 subjects on numpy-drawn multipliers, each channel's sum
+                against the JAX package's CPU value (COHORT_SUM_RTOL), and an
+                8192-subject cohort timed; (b) that cohort's CSV
+                (generate_4gi_dataset) read back through the native C++ route
+                and the csv route, bitwise equal; (c) evaluate_checkpoint of
+                checkpoints/ensemble_id (K=8, H=128) on the seed-42 test split,
+                rmse, rmse_glucose and glucose vs truth against the JAX CPU
+                values to 1e-4 (nll, coverage_90 printed); (d) the same with 5
+                identification steps at 36 points, and the host ms per
+                identification step; (e) one ensemble train step of the
+                recipe from the checkpoint's params, the members' losses and
+                gradient norms against JAX CPU constants to 1e-4, 2 more timed;
+                (f) the launches of one forward at K=1 and K=8 (profiler), equal
+                within 5%, with the device's busy share
   5. timing   - CUDA events, median of 20: forward and backward kernels at
                 the cohort shape, one train step (fwd kernel + bwd kernel +
                 loss + Adam) at the cohort shape and at bench.py's train
@@ -137,8 +154,9 @@ from hybrid_ode_torch.data.dataset import (
     split_dataset,
 )
 from hybrid_ode_torch.dynamics.controls import Controls
-from hybrid_ode_torch.evals.evaluate import evaluate_checkpoint
+from hybrid_ode_torch.evals.evaluate import evaluate_checkpoint, glucose_truth_rmse
 from hybrid_ode_torch.models.hybrid import (
+    _Adam,
     batched_forward,
     config_from_dict,
     amortize_encoder,
@@ -204,8 +222,14 @@ REF_ADAPTIVE_METRICS = {
     "checkpoint_val_loss": 0.5244815349578857,
 }
 REF_ADAPTIVE_TRAIN_LOSS, REF_ADAPTIVE_GRAD_NORM = 1.1237022876739502, 5.447945594787598
-ADAPTIVE_REPS = 5      # timed runs per adaptive mode (median), 3 for dop853
-ADAPTIVE_STEP_REPS = 3  # timed scan train steps (median) after one untimed
+# timed runs per adaptive mode (median), 2 for dop853, and timed scan train
+# steps after one untimed: cut from 5 / 3 / 3 when phase 4e joined, so that
+# the whole script stays well inside 20 minutes on a slow host (871.5 s with
+# the old depths on an H100 machine whose host ran the scan forward 2.1x
+# slower than another's)
+ADAPTIVE_REPS = 3
+ADAPTIVE_DOP853_REPS = 2
+ADAPTIVE_STEP_REPS = 1
 REF_SAMPLES = 64       # windows of the cohort held against a tight f64 run
 # backsolve vs discrete adjoint on the cohort's first 256 windows: the ODE
 # parameters are held elementwise to the JAX suite's limit (rtol 1e-3, atol
@@ -224,6 +248,40 @@ BACKSOLVE_NN_RTOL = 2.3e-3
 # (_rel_err), and error norms relative to max(norm, the clamp floor)
 DENSE_REPLAY_RTOL = 1e-12
 DENSE_ERR_NORM_RTOL = 1e-6
+# Phase 4e, the identified deep ensemble (checkpoints/ensemble_id: K=8 members,
+# H=128, 4 layers, rk4 with 4 substeps, 'params' context mode) and the 4GI
+# generator, each held against the JAX package on the CPU
+# (tests/test_torch_ensemble.py and tests/test_torch_fourgi.py recompute them):
+ENSEMBLE_CKPT = ROOT / "checkpoints" / "ensemble_id" / "ensemble_model"
+# evaluate_checkpoint on the seed-42 test split: (rmse, rmse_glucose, nll,
+# coverage_90, glucose RMSE against the noiseless truth in mmol/L), plain and
+# with ENSEMBLE_ID_STEPS identification steps on the first ENSEMBLE_ID_POINTS
+REF_ENSEMBLE_PLAIN = (0.34763877, 0.57617973, 5.8058872, 0.66256831, 0.89530986)
+ENSEMBLE_ID_STEPS, ENSEMBLE_ID_POINTS = 5, 36
+REF_ENSEMBLE_IDENTIFIED = (0.29557059071621217, 0.48058343176952173, 1.126309130800529,
+                           0.7390710382513661, 0.6396914767183172)
+# one ensemble train step from the checkpoint's params on the recipe's first
+# train batch (configs/4gi_identified_ensemble.yaml: batch 8, lr 3e-3, clip 5,
+# 2500 epochs, ODE params trained; lambda1 0, lambda2 0.01, no physics): the
+# members' losses and global gradient norms
+ENSEMBLE_RECIPE = {"batch_size": 8, "learning_rate": 3e-3, "gradient_clip": 5.0,
+                   "epochs": 2500, "lambda1": 0.0, "lambda2": 0.01, "seed": 0}
+REF_ENSEMBLE_STEP_LOSS = (0.08461064845323563, 0.08554180711507797, 0.08850155770778656,
+                          0.08322668820619583, 0.08915844559669495, 0.09282763302326202,
+                          0.08887159079313278, 0.09281761199235916)
+REF_ENSEMBLE_STEP_GRAD_NORM = (1.3718622922897339, 1.4704915285110474, 0.4401543438434601,
+                               0.3890090584754944, 0.17239989340305328, 3.4150195121765137,
+                               0.3745898902416229, 0.24952460825443268)
+# simulate_cohort (dopri5 'while', f32) of COHORT_SUBJECTS subjects on
+# multipliers drawn with numpy (cohort_multipliers): the sum of each channel's
+# concentrations. The limit is a reading's: the port on the host CPU is 1.6e-5
+# from JAX (glucagon); a dopri5 stage that lands on a meal pulse's edge reads
+# either interval's rate, so last bits move the solution
+COHORT_SUBJECTS, COHORT_MULT_SEED = 50, 7
+REF_COHORT_SUMS = {"glucose": 19243.38458585739, "insulin": 981046.668045044,
+                   "glp1": 5295789.528271675, "glucagon": 120609.25552940369,
+                   "gip": 545976.603764534}
+COHORT_SUM_RTOL = 1e-3
 RTOL = ATOL = 2e-4
 COHORT = 8192          # bench.py's cohort size
 SUBSTEPS = 4
@@ -751,7 +809,7 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
     ys, cohort = {}, {}
     for name, over in runs.items():
         cfg_r = dataclasses.replace(config, **over)
-        reps = 3 if name == "dop853 while" else ADAPTIVE_REPS
+        reps = ADAPTIVE_DOP853_REPS if name == "dop853 while" else ADAPTIVE_REPS
 
         def run():
             with torch.no_grad():
@@ -887,8 +945,8 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
                          device)
     step_ms = time_ms(step, 1, ADAPTIVE_STEP_REPS)
     print(f"adaptive (e) ({smi}): dopri5 scan train step at B={n} T={ts.shape[1]} "
-          f"H={config.nn_hidden}: median {step_ms:.1f} ms of {ADAPTIVE_STEP_REPS} after one "
-          f"untimed")
+          f"H={config.nn_hidden}: {step_ms:.1f} ms (median of {ADAPTIVE_STEP_REPS} after one "
+          f"untimed)")
     out["train_step_ms"] = step_ms
     return out
 
@@ -933,6 +991,215 @@ def expected_vjp_sizes(B, C, in_pad, H, L, substeps, schedule, tile):
     partials = in_pad * H + (L - 1) * H * H + H * 8 + L * H + 8
     return (-(-B // tile), (4 if recompute else 4 * substeps) * slot, partials,
             acts + 8 * cap, staged)
+
+
+def cohort_multipliers(n):
+    """Per-subject baseline multipliers 1 + cv * N(0, 1), drawn with numpy."""
+    from hybrid_ode_torch.data.fourgi_gen import BASELINE_CVS
+
+    rng = np.random.default_rng(COHORT_MULT_SEED)
+    return {name: (1.0 + cv * rng.standard_normal(n)).astype(np.float32)
+            for name, cv in BASELINE_CVS.items()}
+
+
+def _row(metrics, preds, test_ds):
+    return (metrics["rmse"], metrics["rmse_glucose"], metrics["nll"], metrics["coverage_90"],
+            glucose_truth_rmse(preds, test_ds, str(DATA)))
+
+
+def ensemble_phase(device, smi):
+    """Phase 4e: the 4GI generator, the native loader and the identified deep
+    ensemble on `device`; returns the report's entries. Fails on any check."""
+    from hybrid_ode_torch.data import dataset as data_mod
+    from hybrid_ode_torch.data.dataset import pad_batch
+    from hybrid_ode_torch.data.fourgi_gen import generate_4gi_dataset, simulate_cohort
+    from hybrid_ode_torch.parallel import ensemble
+
+    out = {}
+    # (a) the generator: a 50-subject cohort against JAX, an 8192-subject one timed
+    mults = cohort_multipliers(COHORT_SUBJECTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_hours, conc, stats = simulate_cohort(None, COHORT_SUBJECTS, multipliers=mults,
+                                           device=device, return_stats=True)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    sums = {k: float(v.double().sum()) for k, v in conc.items()}
+    rels = {k: abs(sums[k] - ref) / abs(ref) for k, ref in REF_COHORT_SUMS.items()}
+    worst = max(rels, key=rels.get)
+    print(f"ensemble (a) ({smi}): simulate_cohort {COHORT_SUBJECTS} subjects in {gen_ms:.1f} ms "
+          f"(first call); accepted {float(stats.n_accepted.double().mean()):.2f} rejected "
+          f"{float(stats.n_rejected.double().mean()):.2f} per subject, success "
+          f"{float(stats.success.double().mean()):.3f}; channel sums vs JAX-CPU: "
+          + ", ".join(f"{k} {rels[k]:.2e}" for k in rels) + f" (limit {COHORT_SUM_RTOL})")
+    if (rels[worst] > COHORT_SUM_RTOL or conc["glucose"].device.type != device.type
+            or not all(torch.isfinite(v).all() for v in conc.values())):
+        fail(f"simulate_cohort: {worst} sum disagrees with the JAX reference")
+    big = cohort_multipliers(COHORT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, big_conc, big_stats = simulate_cohort(None, COHORT, multipliers=big, device=device,
+                                             return_stats=True)
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.isfinite(v).all() for v in big_conc.values()):
+        fail("the 8192-subject cohort is not finite")
+    print(f"ensemble (a) ({smi}): simulate_cohort {COHORT} subjects in {big_ms:.1f} ms; accepted "
+          f"{float(big_stats.n_accepted.double().mean()):.2f} rejected "
+          f"{float(big_stats.n_rejected.double().mean()):.2f} per subject")
+    out["generator"] = {"ms_50": gen_ms, "ms_8192": big_ms, "sums": sums, "rel_err": rels,
+                        "accepted": float(stats.n_accepted.double().mean()),
+                        "rejected": float(stats.n_rejected.double().mean()),
+                        "success": float(stats.success.double().mean())}
+
+    # (b) the cohort's CSV back through the native and the csv route
+    rng = np.random.default_rng(COHORT_MULT_SEED + 1)
+    noise = {name: rng.standard_normal((COHORT_SUBJECTS, len(t_hours))).astype(np.float32)
+             for name in conc}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "cohort.csv")
+        t0 = time.perf_counter()
+        generate_4gi_dataset(path, n_subjects=COHORT_SUBJECTS, multipliers=mults, noise=noise,
+                             device=device)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = create_data_arrays(path, 61, 30)
+        native_route, native_s = data_mod.last_route, time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = create_data_arrays(path, 61, 30, use_native=False)
+        plain_route, plain_s = data_mod.last_route, time.perf_counter() - t0
+    unequal = [f.name for f in dataclasses.fields(native)
+               if not np.array_equal(getattr(native, f.name), getattr(plain, f.name))]
+    print(f"ensemble (b): generate_4gi_dataset wrote {COHORT_SUBJECTS} subjects in {write_s:.2f} s; "
+          f"read back by the {native_route} route in {native_s:.3f} s and the {plain_route} "
+          f"route in {plain_s:.3f} s: {len(native)} windows, "
+          + ("bitwise equal" if not unequal else f"unequal in {unequal}"))
+    if native_route != "native" or plain_route != "csv" or unequal:
+        fail("the native and the csv route disagree on the generated cohort")
+    out["loader"] = {"native_s": native_s, "csv_s": plain_s, "write_s": write_s,
+                     "windows": len(native)}
+
+    # (c) the checkpoint at full width, the plain ensemble
+    ds = create_data_arrays(str(DATA), 61, 30, use_native=False)
+    train_ds, _, test_ds = split_dataset(ds, seed=42)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_plain, arrays = evaluate_checkpoint(str(ENSEMBLE_CKPT), test_ds, device=device,
+                                          return_arrays=True)
+    plain_s = time.perf_counter() - t0
+    names = ("rmse", "rmse_glucose", "nll", "coverage_90", "glucose_vs_truth")
+    held = ("rmse", "rmse_glucose", "glucose_vs_truth")
+
+    def check(label, row, ref):
+        rels = {n: abs(g - r) / abs(r) for n, g, r in zip(names, row, ref)}
+        print(f"ensemble {label}: " + ", ".join(
+            f"{n}={g:.8f} (JAX-CPU {r}, rel_err {rels[n]:.2e})" for n, g, r in zip(names, row, ref))
+            + f"; held: {', '.join(held)} (limit {REF_RTOL})")
+        if any(rels[n] > REF_RTOL for n in held):
+            fail(f"ensemble {label}: a held metric disagrees with the JAX reference")
+        return rels
+
+    row = _row(m_plain, arrays[0], test_ds)
+    rel_plain = check(f"(c) plain, evaluate_checkpoint in {plain_s:.2f} s", row, REF_ENSEMBLE_PLAIN)
+    out["plain"] = {"row": row, "rel_err": rel_plain, "seconds": plain_s,
+                    "checkpoint_val_loss": m_plain["checkpoint_val_loss"]}
+
+    # (d) the identified ensemble; each identification step (forward, the
+    # intervals' recompute, backward, Adam on the codes) ends in an Adam update,
+    # stamped on the host clock after a synchronize
+    stamps = []
+    adam_step = _Adam.step
+
+    def stamped(self, grads):
+        adam_step(self, grads)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    _Adam.step = stamped
+    try:
+        t0 = time.perf_counter()
+        m_id, arrays = evaluate_checkpoint(str(ENSEMBLE_CKPT), test_ds, device=device,
+                                           return_arrays=True, identify_steps=ENSEMBLE_ID_STEPS,
+                                           identify_points=ENSEMBLE_ID_POINTS)
+        id_s = time.perf_counter() - t0
+    finally:
+        _Adam.step = adam_step
+    row = _row(m_id, arrays[0], test_ds)
+    rel_id = check(f"(d) {ENSEMBLE_ID_STEPS} identification steps at {ENSEMBLE_ID_POINTS} points, "
+                   f"evaluate_checkpoint in {id_s:.2f} s", row, REF_ENSEMBLE_IDENTIFIED)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    id_step_ms = statistics.median(step_ms)
+    print(f"ensemble (d) ({smi}): identification at K=8 B={len(test_ds)} {ENSEMBLE_ID_POINTS} "
+          f"points: {id_step_ms:.1f} host ms per step (median of {len(step_ms)}: "
+          + ", ".join(f"{x:.1f}" for x in step_ms) + ")")
+    state, meta = load_checkpoint(str(ENSEMBLE_CKPT))
+    stacked = params_from_numpy(state, device)
+    config = config_from_dict(meta["config"], use_pallas=False)
+    test_batch = pad_batch(test_ds.batch(np.arange(len(test_ds))), len(test_ds))[0]
+    out["identified"] = {"row": row, "rel_err": rel_id, "seconds": id_s,
+                         "step_ms": id_step_ms, "steps_ms": step_ms}
+
+    # (e) one ensemble train step of the recipe, then 2 timed
+    rc = ENSEMBLE_RECIPE
+    first = next(batch_iterator(train_ds, rc["batch_size"], shuffle=True, seed=rc["seed"]))
+    batch = batch_to_tensors(pad_batch(first, rc["batch_size"])[0], device)
+    opt = ensemble.make_ensemble_optimizer(rc["learning_rate"], rc["epochs"], 1,
+                                           rc["gradient_clip"], train_ode_params=True)
+    st = ensemble.init_ensemble_state(opt, stacked)
+    step = ensemble.make_ensemble_train_step(opt, config, rc["lambda1"], rc["lambda2"], False)
+    gens = [torch.Generator().manual_seed(i) for i in range(8)]
+    st, met = step(st, batch, gens)
+    losses, gnorms = met["loss"].cpu().numpy(), met["grad_norm"].cpu().numpy()
+    rel_loss = float(np.abs(losses - REF_ENSEMBLE_STEP_LOSS).max()
+                     / np.abs(REF_ENSEMBLE_STEP_LOSS).max())
+    rel_gn = float(np.abs(gnorms - REF_ENSEMBLE_STEP_GRAD_NORM).max()
+                   / np.abs(REF_ENSEMBLE_STEP_GRAD_NORM).max())
+    step_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m2 = step(st, batch, gens)
+        float(m2["loss"].sum())
+        step_times.append((time.perf_counter() - t0) * 1e3)
+    print(f"ensemble (e) ({smi}): train step at K=8 B={rc['batch_size']} T=61 H=128: member "
+          f"losses {np.round(losses, 8).tolist()} (rel_err {rel_loss:.2e}), grad norms "
+          f"{np.round(gnorms, 7).tolist()} (rel_err {rel_gn:.2e}; limit {REF_RTOL}); all "
+          f"updated {bool(met['update_ok'].all())}; next 2 steps {step_times[0]:.1f}, "
+          f"{step_times[1]:.1f} host ms")
+    if rel_loss > REF_RTOL or rel_gn > REF_RTOL or not bool(met["update_ok"].all()):
+        fail("the ensemble train step disagrees with the JAX reference")
+    out["train_step"] = {"losses": losses.tolist(), "grad_norms": gnorms.tolist(),
+                         "rel_err_loss": rel_loss, "rel_err_grad_norm": rel_gn,
+                         "ms": step_times}
+
+    # (f) launches of one forward at K=1 and at K=8 (the test windows' first 13
+    # points): the members run in one pass
+    short = dict(test_batch, observations=test_batch["observations"][:, :13],
+                 time_points=test_batch["time_points"][:, :13], mask=test_batch["mask"][:, :13],
+                 external_inputs={k: v[:, :13] for k, v in test_batch["external_inputs"].items()})
+    one = {g: {n: v[:1] for n, v in grp.items()} for g, grp in stacked.items()}
+    prof = {}
+    for label, params in (("K=1", one), ("K=8", stacked)):
+        with torch.no_grad():
+            wall_ms, kernels = profile_ms(lambda: ensemble.ensemble_forward(params, short, config))
+        prof[label] = {"wall_ms": wall_ms, "launches": sum(n for _, n in kernels.values()),
+                       "busy_ms": sum(ms for ms, _ in kernels.values())}
+    a, b = prof["K=1"]["launches"], prof["K=8"]["launches"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ensemble.ensemble_forward(stacked, test_batch, config)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    print(f"ensemble (f) ({smi}): one forward over 12 intervals: K=1 {a} launches, wall "
+          f"{prof['K=1']['wall_ms']:.1f} ms, device busy {prof['K=1']['busy_ms']:.1f} ms; K=8 {b} "
+          f"launches, wall {prof['K=8']['wall_ms']:.1f} ms, device busy "
+          f"{prof['K=8']['busy_ms']:.1f} ms ({100 * prof['K=8']['busy_ms'] / prof['K=8']['wall_ms']:.1f}%)"
+          f"; one K=8 forward over all 60 intervals {fwd_ms:.1f} host ms")
+    if a < 100 or abs(b - a) > 0.05 * a:
+        fail("the ensemble forward's launches grow with the member count")
+    out["launches"] = dict(prof, forward_ms=fwd_ms)
+    return out
 
 
 def main():
@@ -993,7 +1260,7 @@ def main():
     state, meta = load_checkpoint(str(CKPT))
     params = params_from_numpy(state["params"], device)
     config = config_from_dict(meta["config"], use_pallas=True)
-    ds = create_data_arrays(str(DATA), 61, 30)
+    ds = create_data_arrays(str(DATA), 61, 30, use_native=False)
     batch, ctrl = cohort_inputs(ds, params, config, device)
     sig = ctrl.signals
     packed = fused_rk4.pack(batch["initial_state"], batch["time_points"], sig["meal"],
@@ -1293,6 +1560,21 @@ def main():
           f"{adaptive_launches} (the path runs none); host syncs so far {explicit.host_syncs}")
     if any(adaptive_launches):
         fail("the adaptive path launched a fused RK4 kernel")
+
+    # 4e. the identified deep ensemble and the 4GI generator, launch counts
+    # from 0: the JAX ensemble path strips use_pallas, so none of the fused
+    # kernels runs here either
+    fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+    fused_rk4.fused_rk4_bwd_vjp_launches = 0
+    t0 = time.perf_counter()
+    report["ensemble"] = ensemble_phase(device, smi)
+    ens_launches = (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches,
+                    fused_rk4.fused_rk4_bwd_vjp_launches)
+    report["ensemble"]["seconds"] = time.perf_counter() - t0
+    print(f"ensemble: phase 4e in {report['ensemble']['seconds']:.1f} s; fused kernel launches "
+          f"{ens_launches} (the path runs none)")
+    if any(ens_launches):
+        fail("the ensemble path launched a fused RK4 kernel")
 
     # 5. timing
     with torch.no_grad():

@@ -8,19 +8,28 @@ path (`create_data_arrays`) on a CSV read by the `csv` module:
   * sliding windows per subject, subjects in SORTED key order (as
     `DataFrame.groupby` walks them), rows in file order within a subject
   * z-score over all observed points; NaN states become mask=0
-Arrays go to the device per batch (`batch_to_tensors`).
+A CSV takes the native C++ route (`data/native_loader.py`, the JAX package's
+default for CSVs) when it is grouped by subject and has the expected
+columns; the route taken is logged and kept in `last_route`. Arrays go to
+the device per batch (`batch_to_tensors`).
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import logging
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
 STATE_COLS = ["glucose_mmol_L", "insulin_pmol_L", "glucagon_pmol_L", "glp1_pmol_L"]
+
+logger = logging.getLogger("hybrid_ode_torch.data")
+
+#: the route the last `create_data_arrays` call took: 'native' or 'csv'
+last_route = None
 
 
 def _loss_weights_from_stats(data_std: np.ndarray, data_mean: np.ndarray) -> np.ndarray:
@@ -132,21 +141,49 @@ def create_data_arrays(
     dtype=np.float32,
     per_channel_mask: bool = False,
     norm_stats=None,
+    use_native: bool = True,
 ) -> GlucoseDataset:
     """Load a CSV and build the window arrays.
 
+    With `use_native`, no `per_channel_mask` and no `norm_stats` (the JAX
+    package's conditions) the native C++ engine parses the file and builds
+    the windows; a file that is not grouped by ascending integer subject id,
+    or lacks a state column, takes the `csv`-module route instead (logged).
+    The native route reads values as f32, as the JAX package's does: on a
+    file whose numbers are f32 values written exactly (as
+    `data/fourgi_gen.py` writes them) it gives the csv route's arrays bit
+    for bit; where a cell holds more digits, an observation can differ from
+    the csv route's in its last f32 bit.
+
     `norm_stats=(mean, std)` normalizes with external stats (e.g. the
     training cohort's) instead of this file's own."""
+    global last_route
     if norm_stats is not None and not normalize:
         raise ValueError("norm_stats requires normalize=True")
     if not str(data_path).endswith(".csv"):
         raise ValueError(f"unsupported file format (the port reads CSV): {data_path}")
+    if use_native and not per_channel_mask and norm_stats is None:
+        from hybrid_ode_torch.data.native_loader import NotGrouped
+
+        try:
+            ds = _create_data_arrays_native(data_path, sequence_length, stride, normalize, dtype)
+            last_route = "native"
+            logger.info("create_data_arrays: native route for %s", data_path)
+            return ds
+        except (KeyError, NotGrouped, OSError) as e:
+            logger.info("create_data_arrays: csv route for %s (native route declined: %s)",
+                        data_path, e)
+    else:
+        logger.info("create_data_arrays: csv route for %s", data_path)
+    last_route = "csv"
     _, cols = _read_csv(data_path)
     n_rows = len(cols["subject_id"])
 
     def num(name, default=None):
         if name in cols:
             return np.array([_float(v) for v in cols[name]], dtype=np.float64)
+        if default is None:  # a state column the file lacks, as pandas reports it
+            raise KeyError(f"missing column {name!r} in {data_path}")
         return np.full(n_rows, default, dtype=np.float64)
 
     state_arr = np.stack([num(c) for c in STATE_COLS] + [num("ge", 0.0), num("ffa", 1.0)],
@@ -175,7 +212,16 @@ def create_data_arrays(
     if not windows:
         raise ValueError(f"no windows: need >= {sequence_length} points per subject in {data_path}")
 
-    all_states = np.stack([w[1] for w in windows])  # (N, T, 6)
+    return _dataset(np.stack([w[1] for w in windows]), np.stack([w[2] for w in windows]),
+                    np.stack([w[3] for w in windows]), np.stack([w[4] for w in windows]),
+                    np.array([w[0] for w in windows]), normalize, dtype, per_channel_mask,
+                    norm_stats)
+
+
+def _dataset(all_states, meal, tvns, time, subject_ids, normalize, dtype,
+             per_channel_mask=False, norm_stats=None) -> GlucoseDataset:
+    """Windows (N, T, 6) with NaN where unobserved, and their controls and
+    times (N, T), as a normalised GlucoseDataset (both routes)."""
     mask_ch = np.isfinite(all_states)
     if per_channel_mask:
         mask = mask_ch.any(axis=-1).astype(np.float64)
@@ -211,16 +257,58 @@ def create_data_arrays(
     return GlucoseDataset(
         initial_state=norm_states[:, 0].astype(dtype),
         observations=norm_states.astype(dtype),
-        time_points=np.stack([w[4] for w in windows]).astype(dtype),
-        meal=np.stack([w[2] for w in windows]).astype(dtype),
-        tvns=np.stack([w[3] for w in windows]).astype(dtype),
+        time_points=time.astype(dtype),
+        meal=meal.astype(dtype),
+        tvns=tvns.astype(dtype),
         mask=mask.astype(dtype),
         state_mean=mean.astype(dtype),
         state_std=std.astype(dtype),
-        subject_ids=np.array([w[0] for w in windows]),
+        subject_ids=subject_ids,
         loss_weights=weights,
         mask_channels=mask_ch.astype(dtype) if per_channel_mask else None,
     )
+
+
+def _create_data_arrays_native(data_path: str, sequence_length: int, stride: int,
+                               normalize: bool, dtype) -> GlucoseDataset:
+    """The native route: one C++ pass builds f32 windows of the columns the
+    file has; placeholders, time and statistics as in the csv route."""
+    from hybrid_ode_torch.data.native_loader import build_windows
+
+    with open(data_path) as f:
+        have = set(f.readline().strip().split(","))
+    if "subject_id" not in have:
+        raise KeyError("subject_id")
+    missing = [c for c in STATE_COLS if c not in have]
+    if missing:
+        raise KeyError(f"missing state columns {missing}")
+    fetch = list(STATE_COLS) + [c for c in ("ge", "ffa", "meal_indicator", "tvns") if c in have]
+    time_col = next((c for c in ("time_minutes", "time_hours") if c in have), None)
+    if time_col is not None:
+        fetch.append(time_col)
+    wins, subs, _ = build_windows(data_path, fetch, seq_len=sequence_length, stride=stride)
+    N, T, _ = wins.shape
+    if N == 0:
+        raise ValueError(f"no windows: need >= {sequence_length} points per subject in {data_path}")
+    idx = {c: i for i, c in enumerate(fetch)}
+
+    def col(name, default):
+        return wins[..., idx[name]].astype(np.float64) if name in idx else np.full((N, T), default)
+
+    states = np.empty((N, T, 6), np.float64)
+    for i, c in enumerate(STATE_COLS):
+        states[..., i] = wins[..., idx[c]]
+    states[..., 4] = col("ge", 0.0)
+    states[..., 5] = col("ffa", 1.0)
+    meal, tvns = col("meal_indicator", 0.0), col("tvns", 0.0)
+    if time_col == "time_minutes":
+        time = wins[..., idx[time_col]].astype(np.float64) / 60.0
+    elif time_col == "time_hours":
+        time = wins[..., idx[time_col]].astype(np.float64)
+    else:
+        time = np.broadcast_to(np.arange(T) * 5.0 / 60.0, (N, T)).copy()
+
+    return _dataset(states, meal, tvns, time, subs, normalize, dtype)
 
 
 def split_dataset(ds: GlucoseDataset, train_frac: float = 0.7, val_frac: float = 0.15,
@@ -260,9 +348,12 @@ def batch_iterator(ds: GlucoseDataset, batch_size: int, shuffle: bool = True, se
 
 
 def batch_to_tensors(batch: Dict, device) -> Dict:
-    """Numpy batch dict -> tensors on `device` (nested dicts included)."""
+    """Batch dict of arrays or tensors -> tensors on `device` (nested dicts
+    included)."""
     return {k: batch_to_tensors(v, device) if isinstance(v, dict)
-            else torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+            else torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v),
+                                 device=device)
+            for k, v in batch.items()}
 
 
 def pad_batch(batch: Dict, batch_size: int) -> Tuple[Dict, np.ndarray]:

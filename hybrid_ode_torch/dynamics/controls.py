@@ -26,6 +26,13 @@ class Controls(NamedTuple):
     signals: Dict[str, torch.Tensor]
 
 
+def make_controls(ts, signals: Optional[Dict[str, torch.Tensor]] = None) -> Controls:
+    """Controls from array-likes: `ts` and every signal become tensors (a
+    tensor keeps its device)."""
+    return Controls(ts=torch.as_tensor(ts),
+                    signals={k: torch.as_tensor(v) for k, v in (signals or {}).items()})
+
+
 def interp(t: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """`jnp.interp` along the last axis with endpoint clamping.
 

@@ -118,3 +118,15 @@ def steady_state(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
     basal = [params[k].to(torch.float32) for k in ("G_b", "I_b", "Glu_b")]
     rest = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (0.0, 0.0, 1.0)]
     return torch.stack(basal + rest)  # GLP1, GE, FFA (normalized)
+
+
+def check_mass_balance(y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Physiological range checks of states (..., 6): every state >= 0,
+    glucose in [2, 30], insulin in [0, 1000]; boolean tensors (...)."""
+    G = y[..., 0]
+    I = y[..., 1]
+    return {
+        "non_negative": torch.all(y >= 0, dim=-1),
+        "glucose_range": (G >= 2.0) & (G <= 30.0),
+        "insulin_range": (I >= 0.0) & (I <= 1000.0),
+    }

@@ -58,14 +58,33 @@ def mlp_num_layers(params: Dict[str, torch.Tensor]) -> int:
 
 
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              activation: str = "relu") -> torch.Tensor:
-    """Apply the MLP to features x of shape (..., input_dim)."""
+              activation: str = "relu", dropout: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Apply the MLP to features x of shape (..., input_dim).
+
+    Member-stacked weights (w_i (K, in, out), b_i (K, out): a deep
+    ensemble's) take x of shape (K, ..., input_dim); each member's rows go
+    through its own weights as one batched product (K, N, in) x (K, in, out).
+
+    dropout: hidden-layer dropout, active only with a `generator` (the
+    training-mode semantics of torch's nn.Dropout): a unit is kept with
+    probability 1 - dropout, from `generator`'s draws, and scaled by
+    1 / (1 - dropout). The JAX package offers the same option, unused."""
     act = Activation[activation]
     n = mlp_num_layers(params)
-    h = x
-    for i in range(n - 1):
-        h = act(h @ params[f"w{i}"] + params[f"b{i}"])
-    return h @ params[f"w{n-1}"] + params[f"b{n-1}"]
+    stacked = params["w0"].ndim == 3
+    h = x.reshape(x.shape[0], -1, x.shape[-1]) if stacked else x
+    for i in range(n):
+        b = params[f"b{i}"]
+        h = h @ params[f"w{i}"] + (b[:, None] if stacked else b)
+        if i == n - 1:
+            break
+        h = act(h)
+        if dropout > 0.0 and generator is not None:
+            keep = torch.rand(h.shape, generator=generator, dtype=h.dtype,
+                              device=generator.device).to(h.device) < 1.0 - dropout
+            h = torch.where(keep, h / (1.0 - dropout), torch.zeros_like(h))
+    return h.reshape(x.shape[:-1] + h.shape[-1:]) if stacked else h
 
 
 def residual_features(t, y: torch.Tensor, glp1, tvns) -> torch.Tensor:
@@ -96,6 +115,17 @@ def residual_apply(
         extra = extra.expand(feats.shape[:-1] + extra.shape[-1:])
         feats = torch.cat([feats, extra], dim=-1)
     return mlp_apply(params, feats, activation)
+
+
+def feature_importance(params: Dict[str, torch.Tensor], t, y: torch.Tensor, glp1, tvns,
+                       activation: str = "relu") -> torch.Tensor:
+    """Gradient-based feature importance: |d out_j / d in_i| of the residual
+    MLP at the features of (t, y, glp1, tvns), averaged over the samples and
+    the outputs -> (input_dim,)."""
+    feats = residual_features(t, y, glp1, tvns)
+    feats2d = feats.reshape(-1, feats.shape[-1]).detach()
+    jac = torch.func.vmap(torch.func.jacrev(lambda f: mlp_apply(params, f, activation)))(feats2d)
+    return torch.abs(jac).mean(dim=(0, 1))  # jac: (B, out, in)
 
 
 def mlp_l2(params: Dict[str, torch.Tensor], l2_weight: float = 1e-4) -> torch.Tensor:

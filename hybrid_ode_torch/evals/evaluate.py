@@ -1,11 +1,16 @@
-"""Model evaluation of a point checkpoint over a test set.
+"""Model evaluation of a checkpoint (a point model or an ensemble) over a test set.
 
-Port of `hybrid_ode_tpu/evals/evaluate.py`, point path: the forward pass
-runs on the device that holds the parameters (the fused RK4 kernel when the
-config says `use_pallas`), metrics in numpy on the host. The ensemble, VI
-and identification estimators are not ported yet and raise.
+Port of `hybrid_ode_tpu/evals/evaluate.py`, point and ensemble paths: the
+forward pass runs on the device that holds the parameters (the fused RK4
+kernel when a point model's config says `use_pallas`), metrics in numpy on
+the host. Ensemble checkpoints (member-stacked leaves) are scored by the
+ensemble mean and the members' spread, optionally after per-member
+test-time identification of the subject codes (the identified ensemble).
+The VI estimator is not ported yet and raises.
 
     python -m hybrid_ode_torch.evals.evaluate checkpoints/accuracy_benchmark/best_model
+    python -m hybrid_ode_torch.evals.evaluate checkpoints/ensemble_id/ensemble_model \
+        --identify-steps 150 --identify-points 36 --vs-truth
 """
 
 from __future__ import annotations
@@ -19,7 +24,15 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from hybrid_ode_torch.data.dataset import GlucoseDataset, batch_iterator, batch_to_tensors, pad_batch
+from hybrid_ode_torch.data.dataset import (
+    GlucoseDataset,
+    _float,
+    _read_csv,
+    _subject_keys,
+    batch_iterator,
+    batch_to_tensors,
+    pad_batch,
+)
 from hybrid_ode_torch.evals.metrics import (
     STATE_NAMES,
     compute_calibration_error,
@@ -42,7 +55,7 @@ logger = logging.getLogger("hybrid_ode_torch.eval")
 
 
 def _device_of(params: Any) -> torch.device:
-    return params["nn"]["w0"].device
+    return next(iter(params["ode"].values())).device
 
 
 @torch.no_grad()
@@ -79,44 +92,82 @@ def evaluate_model(
     config: HybridConfig,
     batch_size: int = 32,
     variational=None,
+    denormalize: bool = False,
+    obs_sigma=0.0,
     ensemble: bool = False,
     val_ds: Optional[GlucoseDataset] = None,
     identify_steps: int = 0,
+    identify_points: Optional[int] = None,
     identify_params_steps: int = 0,
-) -> Dict[str, float]:
-    """Point-checkpoint metrics on a dataset, on the device holding `params`.
+    identify_param_prior: float = 0.2,
+    encoder=None,
+    return_arrays: bool = False,
+):
+    """Metrics on a dataset, on the device holding `params`.
 
-    With `val_ds` the predictive noise is moment-matched per state on it
-    (`fit_observation_noise`) and the calibration metrics are reported;
-    without it the reference's fixed sigma=0.1 placeholder is used and
-    calibration columns are left out."""
+    Point models: with `val_ds` the predictive noise is moment-matched per
+    state on it (`fit_observation_noise`) and the calibration metrics are
+    reported; without it the reference's fixed sigma=0.1 placeholder is used
+    and calibration columns are left out.
+
+    ensemble: `params` is member-stacked; predictions are the ensemble mean,
+    the uncertainty the members' spread (+ `obs_sigma` in quadrature), and
+    the calibration metrics are reported. `identify_steps` > 0 (ensembles of
+    context-conditioned models only) refines each member's subject codes on
+    the window's first `identify_points` observations (default the model's
+    context_points) before the rollout, from the amortised `encoder`'s codes
+    when one is given; `identify_params_steps` > 0 then also refines
+    per-window multipliers on all mechanistic parameters (trust region
+    `identify_param_prior`). `denormalize` reports in physical units;
+    `return_arrays` also returns (preds, unc, targets, mask)."""
     if variational is not None:
         raise NotImplementedError("VI posterior-predictive evaluation is not ported "
                                   "yet: ROADMAP Queue A 13 (Bayesian inference)")
     if ensemble:
-        raise NotImplementedError("ensemble evaluation is not ported yet: ROADMAP "
-                                  "Queue A 11 (ensembles)")
-    if identify_steps or identify_params_steps:
-        raise NotImplementedError("test-time identification at evaluation runs for "
-                                  "ensembles only, which are not ported yet: ROADMAP "
-                                  "Queue A 11 (ensembles)")
+        from hybrid_ode_torch.parallel.ensemble import (
+            ensemble_predictive,
+            identified_ensemble_predictive,
+        )
+    elif identify_steps:
+        raise ValueError("identify_steps requires ensemble=True "
+                         "(stacked-params checkpoints)")
     point_sigma = None
-    if val_ds is not None:
+    if val_ds is not None and not ensemble:
         point_sigma = fit_observation_noise(params, val_ds, config, batch_size)
 
-    preds_all, targ_all, mask_all = [], [], []
+    preds_all, unc_all, targ_all, mask_all = [], [], [], []
     for batch in batch_iterator(test_ds, batch_size, shuffle=False):
         b, valid = pad_batch(batch, batch_size)
         nb = int(valid.sum())
-        preds_all.append(_predict(params, b, config)[:nb])
+        if ensemble:
+            sigma = obs_sigma if np.any(np.asarray(obs_sigma) > 0) else None
+            if identify_steps:
+                preds, unc = identified_ensemble_predictive(
+                    params, b, config, id_steps=identify_steps, points=identify_points,
+                    encoder=encoder, noise_sigma=sigma,
+                    refine_params=identify_params_steps > 0,
+                    param_steps=identify_params_steps or 150,
+                    param_prior_std=identify_param_prior)
+            else:
+                preds, unc = ensemble_predictive(params, b, config, noise_sigma=sigma)
+            preds, unc = preds.cpu().numpy(), unc.cpu().numpy()
+        else:
+            preds = _predict(params, b, config)
+            sigma = point_sigma if point_sigma is not None else 0.1
+            unc = np.broadcast_to(np.asarray(sigma, preds.dtype), preds.shape)
+        preds_all.append(preds[:nb])
+        unc_all.append(unc[:nb])
         targ_all.append(np.asarray(b["observations"])[:nb])
         mask_all.append(np.asarray(b.get("mask_channels", b["mask"]))[:nb])
 
     preds = np.concatenate(preds_all)
+    unc = np.concatenate(unc_all)
     targets = np.concatenate(targ_all)
     mask = np.concatenate(mask_all)
-    sigma = point_sigma if point_sigma is not None else 0.1
-    unc = np.broadcast_to(np.asarray(sigma, preds.dtype), preds.shape)
+    if denormalize:
+        preds = preds * test_ds.state_std + test_ds.state_mean
+        targets = targets * test_ds.state_std + test_ds.state_mean
+        unc = unc * test_ds.state_std
 
     metrics: Dict[str, float] = {}
     metrics["rmse"] = compute_rmse(preds, targets, mask=mask)
@@ -128,12 +179,13 @@ def evaluate_model(
         metrics[f"rmse_{name.lower()}"] = float(rmse_ps[i])
         metrics[f"mae_{name.lower()}"] = float(mae_ps[i])
 
-    if point_sigma is not None:
+    if ensemble or point_sigma is not None:
         metrics.update(compute_calibration_error(preds, unc, targets, mask=mask))
         metrics["coverage_80"] = compute_coverage(preds, unc, targets, 0.8, mask=mask)
         metrics["coverage_90"] = compute_coverage(preds, unc, targets, 0.9, mask=mask)
         metrics["nll"] = compute_nll(preds, unc, targets, mask=mask)
         metrics["crps"] = compute_crps(preds, unc, targets, mask=mask)
+    if point_sigma is not None:
         for i, name in enumerate(STATE_NAMES):
             metrics[f"noise_sigma_{name.lower()}"] = float(point_sigma[i])
 
@@ -143,7 +195,36 @@ def evaluate_model(
     metrics["nrmse"] = float(metrics["rmse"] / max(np.mean(target_std), 1e-12))
     for i, name in enumerate(STATE_NAMES):
         metrics[f"nrmse_{name.lower()}"] = float(rmse_ps[i] / max(target_std[i], 1e-12))
+    if return_arrays:
+        return metrics, (preds, unc, targets, mask)
     return metrics
+
+
+def glucose_truth_rmse(preds: np.ndarray, test_ds: GlucoseDataset, data_path: str) -> float:
+    """Physical-units glucose RMSE against the generator's noiseless truth
+    column `glucose_true_mmol_L` of `data_path` (a CSV, read with the `csv`
+    module). preds: (N_windows, T, n) in the dataset's normalised
+    coordinates, in dataset order; each window's truth is taken at the
+    nearest file time of its subject."""
+    header, cols = _read_csv(data_path)
+    if "glucose_true_mmol_L" not in cols:
+        raise ValueError(f"{data_path} has no glucose_true_mmol_L column")
+    tcol = next(c for c in ("time_hours", "time_h", "time") if c in cols)
+    keys = _subject_keys(cols["subject_id"])
+    t_all = np.array([_float(v) for v in cols[tcol]])
+    g_all = np.array([_float(v) for v in cols["glucose_true_mmol_L"]])
+    by_subj = {}
+    for sid in set(keys.tolist()):
+        rows = np.nonzero(keys == sid)[0]
+        by_subj[sid] = (t_all[rows], g_all[rows])
+    g_pred = preds[..., 0] * float(test_ds.state_std[0]) + float(test_ds.state_mean[0])
+    se, cnt = 0.0, 0
+    for w in range(len(test_ds)):
+        t_file, g_true = by_subj[test_ds.subject_ids[w]]
+        idx = np.abs(t_file[None, :] - test_ds.time_points[w][:, None]).argmin(1)
+        se += float(((g_pred[w] - g_true[idx]) ** 2).sum())
+        cnt += len(idx)
+    return float(np.sqrt(se / max(cnt, 1)))
 
 
 def evaluate_checkpoint(
@@ -155,27 +236,35 @@ def evaluate_checkpoint(
     use_pallas: Optional[bool] = None,
     device="cuda",
     **eval_kw,
-) -> Dict[str, float]:
+):
     """Rebuild the model from a checkpoint's embedded config and evaluate it
-    on `device`. `use_pallas` overrides the config's kernel switch (the
-    checkpoint metadata may not carry one)."""
+    on `device`. `use_pallas` overrides a point model's kernel switch (the
+    checkpoint metadata may not carry one). A member-stacked checkpoint
+    (metadata `n_members`) is evaluated as an ensemble, never through the
+    fused kernels; its `checkpoint_val_loss` is the mean of the members'
+    `best_val` where it records no `val_loss`. `eval_kw` goes to
+    `evaluate_model` (`identify_steps=`, `return_arrays=`, ...)."""
     from hybrid_ode_torch.utils.checkpoint import load_checkpoint
     from hybrid_ode_torch.utils.convert import params_from_numpy
 
     state, meta = load_checkpoint(checkpoint_path)
-    if meta.get("n_members", 0):
-        raise NotImplementedError("ensemble checkpoints are not ported yet: ROADMAP "
-                                  "Queue A 11 (ensembles)")
-    params = params_from_numpy(state["params"], device=device)
+    is_ensemble = bool(meta.get("n_members", 0))
+    # ensemble checkpoints store the stacked params tree itself
+    params = params_from_numpy(state if is_ensemble else state["params"], device=device)
     if config is None:
-        config = config_from_dict(meta.get("config", {}))
-    if use_pallas is not None:
+        config = config_from_dict(meta.get("config", {}),
+                                  **({"use_pallas": False} if is_ensemble else {}))
+    if use_pallas is not None and not is_ensemble:
         config = dataclasses.replace(config, use_pallas=use_pallas)
-    metrics = evaluate_model(params, test_ds, config, batch_size, val_ds=val_ds, **eval_kw)
+    out = evaluate_model(params, test_ds, config, batch_size, ensemble=is_ensemble,
+                         val_ds=val_ds, **eval_kw)
+    metrics, arrays = out if eval_kw.get("return_arrays") else (out, None)
     metrics["checkpoint_epoch"] = meta.get("epoch", -1)
     val_loss = meta.get("val_loss")
+    if val_loss is None and meta.get("best_val"):
+        val_loss = float(np.mean(meta["best_val"]))
     metrics["checkpoint_val_loss"] = -1 if val_loss is None else val_loss
-    return metrics
+    return (metrics, arrays) if arrays is not None else metrics
 
 
 def save_evaluation_results(metrics: Dict[str, float], output_path: str) -> None:
@@ -224,6 +313,20 @@ def main(argv=None) -> None:
                     help="normalize --data with THIS file's statistics")
     ap.add_argument("--no-split", action="store_true",
                     help="evaluate every window of --data instead of the seed-42 test split")
+    ap.add_argument("--identify-steps", type=int, default=0,
+                    help="ensemble checkpoints: per-member test-time identification steps "
+                         "before the rollout (the identified ensemble)")
+    ap.add_argument("--identify-points", type=int, default=None,
+                    help="identification-window length (observations); default the "
+                         "model's context_points")
+    ap.add_argument("--identify-params-steps", type=int, default=0,
+                    help="also refine per-window log-scale multipliers on all mechanistic "
+                         "parameters for this many steps after the codes")
+    ap.add_argument("--identify-param-prior", type=float, default=0.2,
+                    help="trust-region width of those multipliers")
+    ap.add_argument("--vs-truth", action="store_true",
+                    help="also report physical glucose RMSE against the file's noiseless "
+                         "glucose_true_mmol_L column")
     args = ap.parse_args(argv)
 
     norm_stats = None
@@ -235,10 +338,22 @@ def main(argv=None) -> None:
         val_ds, test_ds = None, ds
     else:
         _, val_ds, test_ds = split_dataset(ds, seed=42)
-    metrics = evaluate_checkpoint(args.checkpoint, test_ds, val_ds=val_ds,
-                                  use_pallas=args.use_pallas, device=args.device)
+    out = evaluate_checkpoint(args.checkpoint, test_ds, val_ds=val_ds,
+                              use_pallas=args.use_pallas, device=args.device,
+                              identify_steps=args.identify_steps,
+                              identify_points=args.identify_points,
+                              identify_params_steps=args.identify_params_steps,
+                              identify_param_prior=args.identify_param_prior,
+                              return_arrays=args.vs_truth)
+    if args.vs_truth:
+        metrics, (preds, _, _, _) = out
+        metrics["glucose_rmse_vs_truth_mmol"] = glucose_truth_rmse(preds, test_ds, args.data)
+    else:
+        metrics = out
     save_evaluation_results(metrics, args.output)
-    print(f"RMSE: {metrics['rmse']:.4f}  MAE: {metrics['mae']:.4f}  NRMSE: {metrics['nrmse']:.4f}")
+    print(f"RMSE: {metrics['rmse']:.4f}  MAE: {metrics['mae']:.4f}  NRMSE: {metrics['nrmse']:.4f}"
+          + (f"  glucose-vs-truth: {metrics['glucose_rmse_vs_truth_mmol']:.4f} mmol/L"
+             if "glucose_rmse_vs_truth_mmol" in metrics else ""))
 
 
 if __name__ == "__main__":

@@ -313,13 +313,19 @@ def _fused_forward(params: Mapping[str, Any], y0: torch.Tensor, ts: torch.Tensor
         n_layers=config.nn_layers, context=context, context_param_idx=ctx_param_idx)
 
 
+def context_features(observations: torch.Tensor, time_points: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """The context encoder's input: each window's first k observations and
+    their times since the window's start, flattened (B, k * (n + 1))."""
+    obs_k = observations[:, :k, :]
+    t_rel = (time_points[:, :k] - time_points[:, :1])[..., None]
+    return torch.cat([obs_k, t_rel], dim=-1).reshape(obs_k.shape[0], -1)
+
+
 def encode_context(enc_params: Mapping[str, torch.Tensor], observations: torch.Tensor,
                    time_points: torch.Tensor, k: int, activation: str = "relu") -> torch.Tensor:
     """Latent subject code from the first k observations of each window."""
-    obs_k = observations[:, :k, :]
-    t_rel = (time_points[:, :k] - time_points[:, :1])[..., None]
-    feats = torch.cat([obs_k, t_rel], dim=-1).reshape(obs_k.shape[0], -1)
-    return mlp_apply(enc_params, feats, activation)
+    return mlp_apply(enc_params, context_features(observations, time_points, k), activation)
 
 
 def with_context(params: Mapping[str, Any], batch: Mapping[str, Any],
@@ -368,14 +374,14 @@ def _frozen(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
 
 
 def _window_misfit(rollout, obs, ts, signals, mask, denom, w_state):
-    """Per-window masked, weighted data misfit (B,) of `rollout(controls)`;
+    """Per-window masked, weighted data misfit (..., B) of `rollout(controls)`;
     non-finite squared errors count as 1e6 BEFORE the sum, so a diverged
     window neither poisons the batch's values nor, through the masked
     branch, its gradients."""
     preds = rollout(Controls(ts=ts, signals=signals))
     se = ((preds - obs) ** 2) * w_state * mask[..., None]
     se = torch.nan_to_num(se, nan=1e6, posinf=1e6)
-    return torch.sum(se, dim=(1, 2)) / denom
+    return torch.sum(se, dim=(-2, -1)) / denom
 
 
 def _refine(x0: torch.Tensor, data_vec, trust, steps: int, lr: float) -> torch.Tensor:
@@ -393,12 +399,12 @@ def _refine(x0: torch.Tensor, data_vec, trust, steps: int, lr: float) -> torch.T
         (g,) = torch.autograd.grad(torch.sum(dvec + trust(x)), x)
         with torch.no_grad():
             improved = dvec.detach() < best_data
-            best_x = torch.where(improved[:, None], x.detach(), best_x)
+            best_x = torch.where(improved[..., None], x.detach(), best_x)
             best_data = torch.where(improved, dvec.detach(), best_data)
         opt.step([torch.nan_to_num(g)])
     with torch.no_grad():
         dvec = data_vec(x.detach())
-        return torch.where((dvec < best_data)[:, None], x.detach(), best_x)
+        return torch.where((dvec < best_data)[..., None], x.detach(), best_x)
 
 
 def _identification_window(params, batch, k: int):
@@ -491,7 +497,7 @@ def forward_with_param_deltas(
     per-window parameters are (B,) tensors that broadcast over the batch in
     the field; this is the scan solver, never the fused kernel."""
     names = sorted(params["ode"].keys())
-    ode = {k: params["ode"][k] * torch.exp(deltas[:, i]) for i, k in enumerate(names)}
+    ode = {k: params["ode"][k] * torch.exp(deltas[..., i]) for i, k in enumerate(names)}
     return forward({**params, "ode": ode}, y0, ts, controls, config)
 
 

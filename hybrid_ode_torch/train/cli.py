@@ -2,18 +2,22 @@
 
     python -m hybrid_ode_torch.train.cli --config configs/4gi_tuned.yaml --epochs 2
     python -m hybrid_ode_torch.train.cli --config ... --device cpu
+    python -m hybrid_ode_torch.train.cli --config configs/4gi_identified_ensemble.yaml --ensemble 8
 
-Trains one model on CUDA unless `--device cpu`; writes runs/<experiment>/
+Trains on CUDA unless `--device cpu`; writes runs/<experiment>/
 (metrics.jsonl) and checkpoints/<experiment>/ (config.yaml, best_model,
-final_model) under the working directory. Reading and writing the YAML
-config needs PyYAML. `--vi` and `--mcmc` train a point model when the merged
-config sets `ablation.no_bayes` (as the JAX CLI does) and are otherwise not
-ported, nor is `--ensemble K>1`.
+final_model; with `--ensemble K` > 1 a K-member deep ensemble trained in one
+pass, `ensemble_model`) under the working directory. Reading and writing the
+YAML config needs PyYAML; `main(argv, config=...)` takes the config as a
+dict instead (written as config.json), which needs none. `--vi` and
+`--mcmc` train a point model when the merged config sets `ablation.no_bayes`
+(as the JAX CLI does) and are otherwise not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 from datetime import datetime
 from pathlib import Path
@@ -41,24 +45,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mcmc-samples", type=int, default=1000)
     p.add_argument("--mcmc-warmup", type=int, default=500)
     p.add_argument("--ensemble", type=int, default=1, metavar="K",
-                   help="K deep-ensemble members (not ported; K=1 trains one model)")
+                   help="train a K-member deep ensemble (K=1 trains one model)")
     p.add_argument("--mcmc-engine", choices=["xla", "fused"], default="xla")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default cuda; 'cpu' for the CPU)")
     return p
 
 
-def main(argv=None) -> None:
+def main(argv=None, config=None) -> None:
+    """Parse `argv` and train. `config`: a config dict merged over the
+    defaults in place of the `--config` YAML file."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
 
     from hybrid_ode_torch.data.dataset import create_data_arrays, split_dataset
     from hybrid_ode_torch.train.loop import train_model
-    from hybrid_ode_torch.utils.config import load_config, merge_cli_overrides, save_config
+    from hybrid_ode_torch.utils.config import (
+        _deep_update,
+        default_config,
+        load_config,
+        merge_cli_overrides,
+        save_config,
+    )
     from hybrid_ode_torch.utils.device import resolve_device
 
-    cfg = merge_cli_overrides(load_config(args.config), args)
+    base = (load_config(args.config) if config is None
+            else _deep_update(default_config(), json.loads(json.dumps(config))))
+    cfg = merge_cli_overrides(base, args)
     # as the JAX CLI: the merged config's no_bayes (flag or YAML) turns
     # --vi / --mcmc into point-model training
     bayes = not cfg["ablation"]["no_bayes"]
@@ -66,8 +80,6 @@ def main(argv=None) -> None:
         raise NotImplementedError("--vi is not ported yet: ROADMAP Queue A 13")
     if args.mcmc and bayes:
         raise NotImplementedError("--mcmc is not ported yet: ROADMAP Queue A 13")
-    if args.ensemble > 1:
-        raise NotImplementedError("--ensemble K>1 is not ported yet: ROADMAP Queue A 11")
 
     device = resolve_device(args.device)
     if args.experiment_name:
@@ -87,7 +99,10 @@ def main(argv=None) -> None:
     ckpt_dir = Path("checkpoints") / experiment
     log_dir.mkdir(parents=True, exist_ok=True)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, ckpt_dir / "config.yaml")
+    if config is None:
+        save_config(cfg, ckpt_dir / "config.yaml")
+    else:
+        (ckpt_dir / "config.json").write_text(json.dumps(cfg, indent=1))
     logger.info("device: %s; experiment: %s", device, experiment)
 
     ds = create_data_arrays(
@@ -101,9 +116,70 @@ def main(argv=None) -> None:
                                               level=cfg["data"].get("split_level", "window"))
     logger.info("dataset: %d windows (train %d / val %d / test %d)",
                 len(ds), len(train_ds), len(val_ds), len(test_ds))
+    if args.ensemble > 1:
+        _run_ensemble(cfg, args.ensemble, train_ds, val_ds, ckpt_dir, cfg.get("seed", 0), device)
+        return
     result = train_model(cfg, train_ds, val_ds, str(ckpt_dir), str(log_dir), device=device)
     logger.info("training done: best val loss %.4f over %d epochs",
                 result.best_val_loss, result.epochs_run)
+
+
+def _run_ensemble(cfg, K, train_ds, val_ds, ckpt_dir, seed, device):
+    """Train a K-member deep ensemble in one pass and save the stacked-params
+    checkpoint `ensemble_model` (leaves carry a leading member axis) with the
+    JAX package's metadata keys."""
+    import numpy as np
+
+    from hybrid_ode_torch.data.dataset import batch_iterator, pad_batch
+    from hybrid_ode_torch.models.hybrid import config_from_dict
+    from hybrid_ode_torch.parallel.ensemble import (
+        ensemble_predictive,
+        init_ensemble,
+        make_ensemble_optimizer,
+        train_ensemble,
+    )
+    from hybrid_ode_torch.utils.checkpoint import save_checkpoint
+
+    config = config_from_dict(cfg, use_pallas=False)  # one weight set per kernel launch
+    tr_cfg = cfg["training"]
+    batch_size = tr_cfg.get("batch_size", 32)
+    epochs = tr_cfg.get("epochs", 100)
+    # one shuffled composition of the train batches; train_ensemble permutes
+    # their order every epoch
+    batches = [pad_batch(b, batch_size)[0]
+               for b in batch_iterator(train_ds, batch_size, shuffle=True, seed=seed)]
+    val_batches = [pad_batch(b, batch_size)[0]
+                   for b in batch_iterator(val_ds, batch_size, shuffle=False)]
+    opt = make_ensemble_optimizer(tr_cfg.get("learning_rate", 1e-3), epochs, len(batches),
+                                  tr_cfg.get("gradient_clip", 5.0),
+                                  train_ode_params=tr_cfg.get("train_ode_params", False))
+    stacked, best_val, metrics = train_ensemble(
+        init_ensemble(seed, config, K, device=device), opt, config, batches, val_batches,
+        seed + 1, epochs,
+        lambda1=tr_cfg.get("lambda1", 1.0),
+        lambda2=tr_cfg.get("lambda2", 0.01),
+        use_physics=not cfg["ablation"].get("no_physics", False),
+        eval_every=max(1, cfg.get("logging", {}).get("log_interval", 10)),
+    )
+    logger.info("ensemble final member losses %s; best val %s",
+                np.round(metrics["loss"], 4), np.round(best_val, 4))
+    # ensemble-mean validation fit (normalised RMSE over observed points)
+    val_rmse = float("nan")
+    if val_batches:
+        se, wsum = 0.0, 0.0
+        for vb in val_batches:
+            mean, _ = ensemble_predictive(stacked, vb, config)
+            err = mean.cpu().numpy() - vb["observations"]
+            w = vb["mask"][..., None] * np.ones_like(err)
+            se += float((err ** 2 * w).sum())
+            wsum += float(w.sum())
+        val_rmse = float(np.sqrt(se / max(wsum, 1.0)))
+    logger.info("ensemble (K=%d) trained %d epochs; val RMSE (ens-mean, z) %.4f",
+                K, epochs, val_rmse)
+    save_checkpoint(str(Path(ckpt_dir) / "ensemble_model"), stacked,
+                    {"config": cfg, "n_members": K, "val_rmse_ensemble": val_rmse,
+                     "best_val": [float(x) for x in best_val],
+                     "epoch": epochs, "val_loss": val_rmse})
 
 
 if __name__ == "__main__":

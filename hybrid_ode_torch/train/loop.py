@@ -43,6 +43,18 @@ def _leaves(tree: Params) -> Iterator[Tuple[str, str, torch.Tensor]]:
             yield group, name, tree[group][name]
 
 
+def trains(train_ode_params, group: str, name: str) -> bool:
+    """Whether a leaf trains: never 'norm'; 'ode' per `train_ode_params`
+    (False, True, or the names that train); everything else."""
+    if group == "norm":
+        return False
+    if group == "ode":
+        if isinstance(train_ode_params, (list, tuple, set)):
+            return name in train_ode_params
+        return bool(train_ode_params)
+    return True
+
+
 def _global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
@@ -60,13 +72,7 @@ class Optimizer:
         self.count = 0  # updates taken, optax's count
 
     def trains(self, group: str, name: str) -> bool:
-        if group == "norm":
-            return False
-        if group == "ode":
-            if isinstance(self.train_ode_params, (list, tuple, set)):
-                return name in self.train_ode_params
-            return bool(self.train_ode_params)
-        return True
+        return trains(self.train_ode_params, group, name)
 
     def schedule(self, count: int) -> float:
         """Learning-rate factor of the cosine decay (alpha 0) at `count`."""

@@ -54,7 +54,7 @@ def _rel_err(a, b):
 @pytest.fixture(scope="module")
 def splits():
     jds = jdata.create_data_arrays(DATA, 61, 30, use_native=False)
-    tds = tdata.create_data_arrays(DATA, 61, 30)
+    tds = tdata.create_data_arrays(DATA, 61, 30, use_native=False)
     return jdata.split_dataset(jds, seed=42), tdata.split_dataset(tds, seed=42)
 
 

@@ -36,7 +36,7 @@ DATA = str(ROOT / "data" / "4gi_dataset.csv")
 @pytest.fixture(scope="module")
 def splits():
     jds = jdata.create_data_arrays(DATA, 61, 30, use_native=False)
-    tds = tdata.create_data_arrays(DATA, 61, 30)
+    tds = tdata.create_data_arrays(DATA, 61, 30, use_native=False)
     return jdata.split_dataset(jds, seed=42), tdata.split_dataset(tds, seed=42)
 
 
@@ -75,7 +75,8 @@ def test_create_data_arrays_matches_jax_pandas_path(per_channel_mask, tmp_path):
     for src in (DATA, str(path)):
         jds = jdata.create_data_arrays(src, 61, 30, use_native=False,
                                        per_channel_mask=per_channel_mask)
-        tds = tdata.create_data_arrays(src, 61, 30, per_channel_mask=per_channel_mask)
+        tds = tdata.create_data_arrays(src, 61, 30, use_native=False,
+                                       per_channel_mask=per_channel_mask)
         for f in dataclasses.fields(jdata.GlucoseDataset):
             a, b = getattr(jds, f.name), getattr(tds, f.name)
             if a is None:
@@ -123,11 +124,10 @@ def test_evaluate_checkpoint_matches_jax(use_pallas, splits):
 
 def test_evaluate_unported_branches_raise(splits):
     _, (_, tva, tte) = splits
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        teval.evaluate_checkpoint(CKPT, tte, device="cpu", ensemble=True)
     with pytest.raises(NotImplementedError, match="Queue A 13"):
         teval.evaluate_checkpoint(CKPT, tte, device="cpu", variational=object())
-    with pytest.raises(NotImplementedError, match="ensembles only.*Queue A 11"):
+    # identification at evaluation is for ensembles only, as in the JAX package
+    with pytest.raises(ValueError, match="identify_steps requires ensemble=True"):
         teval.evaluate_checkpoint(CKPT, tte, device="cpu", identify_steps=5)
 
 

@@ -167,7 +167,7 @@ def small_run(tmp_path_factory):
     """3 steps of JAX train_model and the port's from the same params."""
     cfg = _small_cfg()
     jds = jdata.create_data_arrays(DATA, 13, 12, use_native=False)
-    tds = tdata.create_data_arrays(DATA, 13, 12)
+    tds = tdata.create_data_arrays(DATA, 13, 12, use_native=False)
     (jtr, jva, _), (ttr, tva, _) = jdata.split_dataset(jds, seed=42), tdata.split_dataset(tds, seed=42)
     assert len(ttr) <= 36  # one step per epoch
     p = _jax_params(jhyb.config_from_dict(cfg))
@@ -246,8 +246,7 @@ def test_cli_trains_on_cpu(tmp_path, monkeypatch):
     assert (tmp_path / "checkpoints" / "tiny" / "final_model" / "leaves.npz").exists()
     assert (tmp_path / "checkpoints" / "tiny" / "config.yaml").exists()
     assert (tmp_path / "runs" / "tiny" / "metrics.jsonl").exists()
-    for flags, match in ((["--vi"], "Queue A 13"), (["--mcmc"], "Queue A 13"),
-                         (["--ensemble", "2"], "Queue A 11")):
+    for flags, match in ((["--vi"], "Queue A 13"), (["--mcmc"], "Queue A 13")):
         with pytest.raises(NotImplementedError, match=match):
             tcli.main(["--config", "tiny.yaml", "--device", "cpu", *flags])
     assert tcli.build_parser().parse_args([]).device == "cuda"
