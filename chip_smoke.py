@@ -119,6 +119,36 @@ the last line:
                 gradient norms against JAX CPU constants to 1e-4, 2 more timed;
                 (f) the launches of one forward at K=1 and K=8 (profiler), equal
                 within 5%, with the device's busy share
+  4f. bayes   - Bayesian inference (bayes_phase). NUTS on
+                checkpoints/latent_hybrid_z (H=128, rk4, 4 substeps, no
+                context) and the data file's first 8 windows: (a) the
+                forward and the hand adjoint kernel in 'abs' mode with the 7
+                sampled ODE parameters as context rows, 1024 chains = 8192
+                lanes, against their plain versions (forward at all lanes,
+                phase 3's limits; the adjoint on the first 1024 lanes, every
+                leaf incl. the (1024, 7) dctx to 1e-4); (b) the fused chain
+                log-posterior against the generic engine at 64 chains (value
+                1e-5 (1 + |v|); gradient per parameter by phase 3's rule
+                against an f64 generic run); (c) the first transition of
+                those chains through both engines on identical draws: at
+                least 61 of 64 agree on n_leapfrog with q within 1e-4;
+                (d) nuts_sample on a correlated 7-d Gaussian, 1024 chains:
+                means and covariances within the JAX suite's atol 0.12 /
+                0.35, divergences below 1%; (e) the phase's main path, every
+                count from 0: run_nuts(engine='fused') 1024 chains, 12 warmup
+                transitions (the mass adapts) and 8 draws at depth 4: draws
+                finite, mean accept statistic above 0.2, forward launches =
+                adjoint launches = leapfrogs + initial gradients; R-hat,
+                ESS, divergences, ms per fused leapfrog, host bookkeeping
+                per leapfrog, leapfrogs / transitions / draws per s, host
+                syncs per transition and one profiled transition's device
+                busy share printed; (f) VI on the configs/4gi_vi.yaml recipe
+                (template checkpoints/4gi_baseline_full, dopri5 scan): the
+                first ELBO, KL and log-likelihood on JAX's replayed draws
+                against JAX CPU constants to 1e-4, one step timed,
+                save_checkpoint -> restore -> evaluate_model's VI branch on
+                the test split (VI_EVAL_SAMPLES posterior samples) equal to
+                the in-memory object's, no fused launch
   5. timing   - CUDA events, median of 20: forward and backward kernels at
                 the cohort shape, one train step (fwd kernel + bwd kernel +
                 loss + Adam) at the cohort shape and at bench.py's train
@@ -282,6 +312,74 @@ REF_COHORT_SUMS = {"glucose": 19243.38458585739, "insulin": 981046.668045044,
                    "glp1": 5295789.528271675, "glucagon": 120609.25552940369,
                    "gip": 545976.603764534}
 COHORT_SUM_RTOL = 1e-3
+# Phase 4f, Bayesian inference. NUTS on checkpoints/latent_hybrid_z (H=128,
+# 4 layers, relu, rk4 with 4 substeps, no context, no 'norm' group: the
+# repo's one full-width checkpoint the fused engine accepts), the first
+# NUTS_WINDOWS windows of the data file in file order, z-scored with the
+# checkpoint's statistics; NUTS_CHAINS chains fill NUTS_CHAINS x 8 = 8192
+# lanes of one fused launch
+NUTS_CKPT = ROOT / "checkpoints" / "latent_hybrid_z" / "best_model"
+NUTS_WINDOWS = 8
+NUTS_CHAINS = 1024
+# chains held against the generic engine: (b) the log-posterior to the JAX
+# suite's fused-vs-XLA limit 1e-5 (1 + |v|) (tests/test_pallas_kernel.py,
+# there on a small model); the gradient by phase 3's full-width rule, each
+# parameter's gradient over the chains a leaf: _rel_err against an f64 run of
+# the generic engine within BWD_FULL_RTOL, or no farther from it than the f32
+# generic engine. At full width the (1 + |g|) measure is no property of f32:
+# where a chain's gradient is a sum of large terms that cancels, both f32
+# engines sit 1e-4 to 4e-3 (1 + |g|) from f64 (the port's plain fused version
+# and generic engine on the CPU, 16 chains, alike to within 10%). (c) the
+# first transition on identical draws at NUTS_CMP_DEPTH (the generic
+# engine's plain rk4 solve is launch-bound, about 11 s per gradient on the
+# card)
+NUTS_CMP_CHAINS, NUTS_CMP_DEPTH, NUTS_CMP_RTOL = 64, 1, 1e-5
+# (e) run_nuts(engine='fused'): warmup (> 10, so the mass adapts), draws, depth
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 12, 8, 4
+# (d) nuts_sample on a correlated 7-d Gaussian: the JAX suite's limits
+# (test_nuts_correlated_gaussian: means atol 0.12, covariances atol 0.35)
+GAUSS_DIM, GAUSS_WARMUP, GAUSS_SAMPLES, GAUSS_DEPTH = 7, 40, 30, 5
+GAUSS_MEAN_ATOL, GAUSS_COV_ATOL, GAUSS_DIV_RATE = 0.12, 0.35, 0.01
+# (f) VI on the configs/4gi_vi.yaml recipe (PyYAML is not on the card: its
+# settings are written here; tests/test_torch_bayes.py holds them to the YAML):
+# the template checkpoints/4gi_baseline_full (dopri5 scan, H=64, 8 steps per
+# interval), the seed-42 train split's first batch (VI_BATCH, padded)
+VI_CKPT = ROOT / "checkpoints" / "4gi_baseline_full" / "best_model"
+VI_PRIORS = {"a_GI": {"mean": 0.0104, "std": 0.002}, "k_I": {"mean": 0.025, "std": 0.005},
+             "rho": {"mean": 0.003, "std": 0.001}, "E_max": {"mean": 0.1, "std": 0.02},
+             "V_max": {"mean": 9.0, "std": 2.0}, "K_m": {"mean": 7.0, "std": 1.5},
+             "k_L": {"mean": 0.02, "std": 0.005}}
+VI_SETTINGS = {"n_samples": 5, "noise_sigma": 0.35, "include_nn": False}
+VI_LR, VI_BATCH = 5e-4, 16
+# the standard normal draws of the first VI step in the JAX package's key
+# schedule: key = jax.random.split(jax.random.PRNGKey(0))[1] (the first step
+# of train(seed=0)), split into the 5 samples, each split over the 8 sorted
+# leaves (the 8 ODE parameters under the posterior: the 7 with priors and
+# EC_50 under N(0, 1))
+VI_EPS = {
+    "ode_EC_50": (0.3190682828426361, -1.8768121004104614, 0.7226881980895996,
+                  -0.10982715338468552, 0.7020218968391418),
+    "ode_E_max": (0.5573172569274902, 2.215897560119629, 0.19253291189670563,
+                  -0.8896790146827698, -0.37218838930130005),
+    "ode_K_m": (1.3846383094787598, -0.43668580055236816, 0.0059644244611263275,
+                -0.6523536443710327, 1.2605149745941162),
+    "ode_V_max": (0.19345715641975403, -0.6488502025604248, -0.5742853879928589,
+                  1.7110282182693481, -0.7791250944137573),
+    "ode_a_GI": (-0.7641761302947998, 0.5012057423591614, 1.1411482095718384,
+                 0.48966267704963684, -0.9759562015533447),
+    "ode_k_I": (0.6996859908103943, 1.334916353225708, -1.020973801612854,
+                -0.8813685774803162, 1.286223292350769),
+    "ode_k_L": (-0.31554266810417175, 0.6040370464324951, -1.2810149192810059,
+                0.024808909744024277, -0.11099724471569061),
+    "ode_rho": (-0.34145769476890564, -0.054992854595184326, -0.7970839738845825,
+                1.0478830337524414, -1.492479681968689),
+}
+# the JAX package on the CPU, that step's ELBO, KL and log-likelihood (before
+# the update), held to REF_RTOL
+REF_VI_ELBO, REF_VI_KL, REF_VI_LOGLIK = -12632.9921875, 1262.971435546875, -11370.0205078125
+# posterior samples of the VI evaluation on the seed-42 test split: cut from
+# the CLI's default 100 to fit the phase's time (one batched solve either way)
+VI_EVAL_SAMPLES = 20
 RTOL = ATOL = 2e-4
 COHORT = 8192          # bench.py's cohort size
 SUBSTEPS = 4
@@ -594,13 +692,15 @@ def train_step_fn(params, batch, config, lambda2, device=torch.device("cuda")):
     return lambda: step(state, batch, gen)
 
 
-def profile_ms(fn):
-    """One profiled call of fn: (wall ms, {kernel name: (device ms, launches)}).
-    Wall time is the host clock around fn and a synchronize."""
+def profile_ms(fn, warm=True):
+    """One profiled call of fn (after an unprofiled one unless `warm` is
+    False): (wall ms, {kernel name: (device ms, launches)}). Wall time is the
+    host clock around fn and a synchronize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1202,6 +1302,284 @@ def ensemble_phase(device, smi):
     return out
 
 
+def _rel_to(ref, x):
+    """max |x - ref| / (1 + |ref|): the JAX suite's fused-vs-XLA measure."""
+    ref, x = ref.double(), x.double()
+    return float(((x - ref).abs() / (1.0 + ref.abs())).max())
+
+
+def _recording(logp_and_grad, calls):
+    def f(q):
+        v, g = logp_and_grad(q)
+        calls.append((v, g))
+        return v, g
+    return f
+
+
+def bayes_phase(device, smi, chains=NUTS_CHAINS, cmp_chains=NUTS_CMP_CHAINS,
+                gauss_chains=NUTS_CHAINS, vi_samples=VI_EVAL_SAMPLES):
+    """Phase 4f: Bayesian inference on `device`. The fused NUTS engine's
+    kernels in 'abs' mode with 7 rows against their plain versions, the
+    engine against the generic one, the sampler on a Gaussian, run_nuts
+    through the fused kernels (its launches counted from 0: the phase's main
+    path), then VI on the dopri5 recipe. Returns the report's entries; fails
+    on any check."""
+    from hybrid_ode_torch.data.dataset import pad_batch
+    from hybrid_ode_torch.evals.evaluate import evaluate_model
+    from hybrid_ode_torch.inference import mcmc
+    from hybrid_ode_torch.inference.vi import VariationalInference
+
+    t_phase = time.perf_counter()
+    out = {}
+    state, meta = load_checkpoint(str(NUTS_CKPT))
+    params = params_from_numpy(state["params"], device)
+    config = config_from_dict(meta["config"])
+    if ((config.solver, config.activation, config.nn_hidden, config.substeps, config.context_points)
+            != ("rk4", "relu", 128, SUBSTEPS, 0) or "norm" in params):
+        fail(f"{NUTS_CKPT} is not the rk4 / relu / H=128 model without context the phase needs")
+    norm = (np.asarray(meta["state_mean"], np.float32), np.asarray(meta["state_std"], np.float32))
+    ds = create_data_arrays(str(DATA), 61, 30, norm_stats=norm, use_native=False)
+    batch = batch_to_tensors(ds.batch(np.arange(NUTS_WINDOWS)), device)
+    B, T = batch["time_points"].shape
+    fused = mcmc.posterior(params, batch, config, "fused")
+    generic = mcmc.posterior(params, batch, config, "xla")
+    dim = fused.layout.dim
+    q_idx = [int(fused.layout.index(n)) for n in fused.sample_names]
+    cpi = tuple(fused_rk4.PARAM_ORDER.index(n[4:]) for n in fused.sample_names)
+    # chain starts as run_nuts draws them: the checkpoint's values + 0.01 N(0, 1)
+    rng = np.random.default_rng(12)
+    Q = fused.q0[None] + 0.01 * torch.as_tensor(rng.standard_normal((chains, dim)),
+                                                 dtype=torch.float32, device=device)
+    print(f"bayes: {NUTS_CKPT.parent.name}, {B} windows x T={T}, {chains} chains = "
+          f"{chains * B} lanes, {len(cpi)} sampled parameters as 'abs' context rows "
+          f"(PARAM_ORDER {cpi})")
+
+    # (a) both kernels in 'abs' mode with 7 rows at the engine's full lane count
+    sig = fused.controls.signals
+    rep = lambda x: x.repeat(chains, 1)  # noqa: E731  chain-major lanes c * B + b
+    packed = fused_rk4.pack(rep(batch["initial_state"]), rep(batch["time_points"]),
+                            rep(sig["meal"]), rep(sig["tVNS"]), params["ode"], params["nn"],
+                            config.nn_layers, Q[:, q_idx].repeat_interleave(B, 0))
+    with torch.no_grad():
+        k = fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS, cpi, "abs")
+        torch.cuda.synchronize()
+        fwd_err = compare(k, fused_rk4._fwd_plain(*packed, SUBSTEPS, cpi, "abs"),
+                          f"'abs' 7 rows at {chains * B} lanes")
+    nb = min(BWD_B, chains * B)
+    packed_head = (packed[0][:nb].contiguous(), *(x[:, :nb].contiguous() for x in packed[1:5]),
+                   packed[5], packed[6])
+    bwd_err, _, leaves, _ = compare_bwd(packed_head, T, SUBSTEPS,
+                                        f"'abs' 7 rows (first {nb} lanes)", cpi, "abs",
+                                        limit=BWD_FULL_RTOL)
+    if tuple(leaves["dctx"].shape) != (nb, len(cpi)):
+        fail(f"the hand adjoint's dctx is {tuple(leaves['dctx'].shape)}, not ({nb}, 7)")
+    out["kernels_abs7"] = {"fwd_max_abs": fwd_err, "bwd_max_abs": bwd_err}
+
+    # (b) + (c): the first transition of cmp_chains chains through both engines
+    # on identical draws; its first evaluation is (b)
+    Qc = Q[:cmp_chains]
+    eps = torch.logspace(-4, -2, cmp_chains, device=device)
+    ones = torch.ones(dim, device=device)
+    res, first = {}, {}
+    for name, post in (("fused", fused), ("generic", generic)):
+        calls = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = mcmc._nuts_step(_recording(post.logp_and_grad, calls), Qc,
+                                    mcmc.TorchDraws(torch.Generator(device).manual_seed(21)),
+                                    eps, ones, NUTS_CMP_DEPTH)
+        torch.cuda.synchronize()
+        first[name] = calls[0]
+        print(f"bayes (c): one transition of {cmp_chains} chains at depth {NUTS_CMP_DEPTH}, "
+              f"{name} engine: {len(calls)} evaluations in {time.perf_counter() - t0:.2f} s")
+    f64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x  # noqa: E731
+    b64 = {k: ({n: f64(v) for n, v in x.items()} if isinstance(x, dict) else f64(x))
+           for k, x in batch.items()}
+    p64 = {g: {n: f64(v) for n, v in grp.items()} for g, grp in params.items()}
+    t0 = time.perf_counter()
+    v64, g64 = mcmc.posterior(p64, b64, config, "xla").logp_and_grad(Qc.double())
+    f64_s = time.perf_counter() - t0
+    v_err = _rel_to(first["generic"][0], first["fused"][0])
+    g_jax = _rel_to(first["generic"][1], first["fused"][1])
+    def col_err(x):  # _rel_err of each parameter's gradient over the chains
+        return ((x.double() - g64).abs().amax(0) / g64.abs().amax(0).clamp_min(1e-8)).tolist()
+
+    err_f, err_g = col_err(first["fused"][1]), col_err(first["generic"][1])
+    g_ok = all(f <= BWD_FULL_RTOL or f <= g for f, g in zip(err_f, err_g))
+    print(f"bayes (b): fused chain log-posterior vs generic engine at {cmp_chains} chains: value "
+          f"{v_err:.2e} (max |d| / (1 + |v|), limit {NUTS_CMP_RTOL}); gradient {g_jax:.2e} by "
+          f"that measure (not held); per parameter _rel_err against the generic engine in f64 "
+          f"({f64_s:.1f} s), fused / generic f32: "
+          + ", ".join(f"{n[4:]} {f:.2e} / {g:.2e}" for n, f, g in
+                      zip(fused.sample_names, err_f, err_g))
+          + f" (limit {BWD_FULL_RTOL}, or no farther than the generic f32): {'ok' if g_ok else 'FAIL'}")
+    if not (v_err <= NUTS_CMP_RTOL and g_ok):
+        fail("the fused chain log-posterior disagrees with the generic engine")
+    qf, af, nf, df = res["fused"]
+    qg, ag, ng, dg = res["generic"]
+    agree = (nf == ng) & (df == dg) & ((qf - qg).abs() <= 1e-4 * qg.abs()).all(-1)
+    n_agree = int(agree.sum())
+    print(f"bayes (c): chains agreeing on n_leapfrog with q within 1e-4: {n_agree} of "
+          f"{cmp_chains} (expected >= {cmp_chains - 3}); n_leapfrog fused "
+          f"{nf.tolist()[:16]}..., accept statistic max |d| {float((af - ag).abs().max()):.2e}")
+    if n_agree < cmp_chains - 3:
+        fail("the fused and the generic engine took other transitions on the same draws")
+    out["engines"] = {"logp_err": v_err, "grad_err_jax": g_jax, "fused_vs_f64": err_f,
+                      "generic_vs_f64": err_g, "agree": n_agree,
+                      "chains": cmp_chains}
+
+    # (d) the sampler alone on a correlated 7-d Gaussian
+    g_rng = np.random.default_rng(13)
+    Amat = g_rng.normal(size=(GAUSS_DIM, GAUSS_DIM))
+    cov = Amat @ Amat.T / GAUSS_DIM + 0.3 * np.eye(GAUSS_DIM)
+    mu = g_rng.normal(size=GAUSS_DIM)
+    prec = torch.as_tensor(np.linalg.inv(cov), dtype=torch.float32, device=device)
+    mu_t = torch.as_tensor(mu, dtype=torch.float32, device=device)
+
+    def gauss_logp(q):
+        d = q - mu_t
+        return -0.5 * ((d @ prec) * d).sum(-1)
+
+    gen = torch.Generator(device).manual_seed(14)
+    syncs0 = mcmc.host_syncs
+    t0 = time.perf_counter()
+    g_out = mcmc.nuts_sample(gauss_logp, torch.randn((gauss_chains, GAUSS_DIM), generator=gen,
+                                                     device=device), gen,
+                             num_samples=GAUSS_SAMPLES, num_warmup=GAUSS_WARMUP,
+                             max_depth=GAUSS_DEPTH)
+    g_s = time.perf_counter() - t0
+    draws = g_out["samples"].reshape(-1, GAUSS_DIM).astype(np.float64)
+    mean_err = float(np.abs(draws.mean(0) - mu).max())
+    cov_err = float(np.abs(np.cov(draws.T) - cov).max())
+    div_rate = float(g_out["diverging"].mean())
+    leap = int(g_out["n_leapfrog"].sum())
+    print(f"bayes (d) ({smi}): nuts_sample, correlated {GAUSS_DIM}-d Gaussian, {gauss_chains} "
+          f"chains x ({GAUSS_WARMUP} warmup + {GAUSS_SAMPLES} draws), depth {GAUSS_DEPTH}, in "
+          f"{g_s:.2f} s ({mcmc.host_syncs - syncs0} loop iterations): mean err {mean_err:.3f} "
+          f"(atol {GAUSS_MEAN_ATOL}), cov err {cov_err:.3f} (atol {GAUSS_COV_ATOL}), divergence "
+          f"rate {div_rate:.4f} (< {GAUSS_DIV_RATE}), {leap / g_out['n_leapfrog'].size:.1f} "
+          "leapfrogs per draw")
+    if not (mean_err <= GAUSS_MEAN_ATOL and cov_err <= GAUSS_COV_ATOL and div_rate < GAUSS_DIV_RATE):
+        fail("nuts_sample missed the Gaussian's moments or diverged too often")
+    out["gaussian"] = {"mean_err": mean_err, "cov_err": cov_err, "divergence_rate": div_rate,
+                       "seconds": g_s}
+
+    # (e) the phase's main path: run_nuts through the fused kernels, every
+    # count from 0
+    with torch.no_grad():
+        pair_ms = time_ms(lambda: fused.logp_and_grad(Q), 1, 3)
+    fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+    fused_rk4.fused_rk4_bwd_vjp_launches = 0
+    mcmc.host_syncs = mcmc.grad_evals = mcmc.transitions = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = mcmc.run_nuts(params, batch, config, torch.Generator(device).manual_seed(0),
+                            num_samples=NUTS_SAMPLES, num_warmup=NUTS_WARMUP, n_chains=chains,
+                            max_depth=NUTS_DEPTH, engine="fused")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches,
+                fused_rk4.fused_rk4_bwd_vjp_launches)
+    evals, trans, syncs = mcmc.grad_evals, mcmc.transitions, mcmc.host_syncs
+    leapfrogs = evals - trans
+    accept = float(np.mean(samples["_accept_stat"]))
+    finite = all(np.isfinite(v).all() for v in samples.values())
+    print(f"main path (NUTS, fused engine): run_nuts {chains} chains x ({NUTS_WARMUP} warmup + "
+          f"{NUTS_SAMPLES} draws), depth {NUTS_DEPTH}, in {run_s:.2f} s: {trans} transitions, "
+          f"{leapfrogs} leapfrogs, fused_rk4_fwd launches={launches[0]} fused_rk4_bwd "
+          f"launches={launches[1]} (leapfrogs + initial gradients = {evals}); mean accept "
+          f"statistic {accept:.3f} (> 0.2); divergences {int(samples['_diverging'].sum())} of "
+          f"{samples['_diverging'].size}; every draw finite: {finite}")
+    if not finite or not accept > 0.2:
+        fail("run_nuts(engine='fused') gave non-finite draws or accepted too little")
+    if not launches[0] == launches[1] == evals or launches[2]:
+        fail("the fused engine's launches are not one forward and one hand adjoint per evaluation")
+    diag = {}
+    for n in fused.sample_names:
+        s_cd = samples[n].reshape(chains, NUTS_SAMPLES)
+        diag[n] = (mcmc.rhat(s_cd), mcmc.ess_bulk(s_cd), mcmc.ess_tail(s_cd))
+    print("bayes (e): split R-hat / bulk ESS / tail ESS (not held: a short run): "
+          + "; ".join(f"{n[4:]} {r:.3f} / {b:.0f} / {t:.0f}" for n, (r, b, t) in diag.items()))
+    host_ms = (run_s * 1e3 - evals * pair_ms) / max(leapfrogs, 1)
+    wall_ms, kernels = profile_ms(lambda: mcmc._nuts_step(  # the kernels are warm
+        fused.logp_and_grad, Q, mcmc.TorchDraws(torch.Generator(device).manual_seed(5)),
+        torch.as_tensor(samples["_step_size"], device=device), torch.ones(dim, device=device),
+        NUTS_DEPTH), warm=False)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    print(f"bayes (e) ({smi}): fused leapfrog pair (forward + hand adjoint + host work) "
+          f"{pair_ms:.3f} ms at {chains * B} lanes; host bookkeeping {host_ms:.3f} ms per "
+          f"leapfrog; {leapfrogs / run_s:.2f} leapfrogs/s, {trans / run_s:.3f} transitions/s, "
+          f"{chains * NUTS_SAMPLES / run_s:.1f} draws/s (warmup included); "
+          f"{syncs / trans:.1f} host syncs per transition; one profiled transition: wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    out["nuts"] = {"seconds": run_s, "transitions": trans, "leapfrogs": leapfrogs,
+                   "grad_evals": evals, "launches": launches, "accept": accept,
+                   "divergences": int(samples["_diverging"].sum()), "diagnostics": diag,
+                   "pair_ms": pair_ms, "host_ms_per_leapfrog": host_ms,
+                   "host_syncs": syncs, "profile": {"wall_ms": wall_ms, "busy_ms": busy_ms}}
+
+    # (f) VI on the 4gi_vi.yaml recipe (dopri5: the plain solvers, no fused launch)
+    before = (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches,
+              fused_rk4.fused_rk4_bwd_vjp_launches)
+    vstate, vmeta = load_checkpoint(str(VI_CKPT))
+    vconfig = config_from_dict(vmeta["config"])
+    vds = create_data_arrays(str(DATA), 61, 30, use_native=False)
+    train_ds, _, test_ds = split_dataset(vds, seed=42)
+    vbatch = pad_batch(next(batch_iterator(train_ds, VI_BATCH, shuffle=True, seed=0)), VI_BATCH)[0]
+    vi = VariationalInference(params_from_numpy(vstate["params"], device), vconfig,
+                              prior_params=VI_PRIORS, learning_rate=VI_LR, **VI_SETTINGS)
+    t0 = time.perf_counter()
+    _, comps = vi.evaluate_elbo(vbatch, eps={k: torch.tensor(v) for k, v in VI_EPS.items()})
+    elbo_s = time.perf_counter() - t0
+    for key, ref in (("elbo", REF_VI_ELBO), ("kl", REF_VI_KL), ("log_likelihood", REF_VI_LOGLIK)):
+        got = float(comps[key])
+        rel = abs(got - ref) / abs(ref)
+        print(f"bayes (f): first VI {key}={got:.7f} JAX-CPU reference={ref} rel_err={rel:.2e} "
+              f"(limit {REF_RTOL})")
+        if rel > REF_RTOL:
+            fail(f"the first VI {key} disagrees with the JAX reference")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = vi.train_step(vbatch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    vi_step_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.isfinite(v) for v in step.values()):
+        fail("the VI step's ELBO is not finite")
+    with tempfile.TemporaryDirectory() as tmp:
+        vi.save_checkpoint(str(Path(tmp) / "vi_model"))
+        restored = VariationalInference.restore(str(Path(tmp) / "vi_model"), device=device)
+
+    def vi_metrics(v):
+        return evaluate_model(v.template, test_ds, v.config, variational=v,
+                              n_posterior_samples=vi_samples, obs_sigma=v.noise_sigma,
+                              generator=torch.Generator().manual_seed(3))
+
+    t0 = time.perf_counter()
+    m_r = vi_metrics(restored)
+    eval_s = time.perf_counter() - t0
+    m_v = vi_metrics(vi)
+    diff = max(abs(m_r[k] - m_v[k]) / max(abs(m_v[k]), 1e-12) for k in m_v)
+    after = (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches,
+             fused_rk4.fused_rk4_bwd_vjp_launches)
+    print(f"bayes (f) ({smi}): ELBO (forward) {elbo_s:.2f} s; one VI step {vi_step_ms:.1f} ms "
+          f"(dopri5 scan, {VI_SETTINGS['n_samples']} samples x {VI_BATCH} windows on the member "
+          f"axis): {json.dumps(step)}; restored checkpoint, evaluate_model VI branch on "
+          f"{len(test_ds)} test windows with {vi_samples} posterior samples in {eval_s:.2f} s: "
+          f"rmse {m_r['rmse']:.6f} ece {m_r['ece']:.4f} coverage_90 {m_r['coverage_90']:.4f}; "
+          f"restored vs in-memory max rel diff {diff:.2e}; fused launches {before} -> {after}")
+    if not all(np.isfinite(v) for v in m_r.values()) or not diff <= 1e-6:
+        fail("the restored VI posterior's metrics are not finite or differ from the in-memory one's")
+    if after != before:
+        fail("the VI recipe (dopri5) launched a fused kernel")
+    out["vi"] = {"elbo": float(comps["elbo"]), "kl": float(comps["kl"]),
+                 "log_likelihood": float(comps["log_likelihood"]), "step_ms": vi_step_ms,
+                 "elbo_s": elbo_s, "eval_s": eval_s, "restored_diff": diff,
+                 "metrics": {k: m_r[k] for k in ("rmse", "ece", "coverage_90", "nll")}}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"bayes: phase 4f in {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1576,6 +1954,12 @@ def main():
     if any(ens_launches):
         fail("the ensemble path launched a fused RK4 kernel")
 
+    # 4f. Bayesian inference: run_nuts through the fused kernels ('abs' mode,
+    # 7 rows, 8192 lanes; its launches counted from 0 inside), then VI on the
+    # dopri5 recipe (no fused launch)
+    report["bayes"] = bayes_phase(device, smi)
+    bayes_launches = report["bayes"]["nuts"]["launches"]
+
     # 5. timing
     with torch.no_grad():
         traj_full, gbar_full = bwd_inputs(packed, T, SUBSTEPS)
@@ -1694,14 +2078,14 @@ def main():
         {"name": "fused_rk4_fwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_fwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:253",
-         "launches": launches + train_launches[0] + id_launches[0],
+         "launches": launches + train_launches[0] + id_launches[0] + bayes_launches[0],
          "max_abs_err": max(max_abs.values()),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None, "ms_bf16": bf16_ms["fwd"]},
         {"name": "fused_rk4_bwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:414",
-         "launches": train_launches[1] + id_launches[1],
+         "launches": train_launches[1] + id_launches[1] + bayes_launches[1],
          "max_abs_err": max(bwd_max_abs.values()),
          "ms": bwd_ms, "plain_ms": bwd_plain_s * 1e3, "plain_batch": BWD_B,
          "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,

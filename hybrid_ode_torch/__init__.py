@@ -5,8 +5,8 @@ mirrors the module of the same name there and is tested against it on the
 CPU (`tests/test_torch_*.py`). This package never imports JAX or
 `hybrid_ode_tpu`.
 
-Layering (bottom-up), serving, training, identification, adaptive-solver
-and ensemble paths so far:
+Layering (bottom-up), serving, training, identification, adaptive-solver,
+ensemble and Bayesian paths so far:
   dynamics/   mechanistic 6-state field, MLP residual, piecewise-linear
               controls, the 8-state 4GI simulator field
   solvers/    fixed-grid RK4 / Euler, adaptive explicit RK (scan, while,
@@ -20,8 +20,10 @@ and ensemble paths so far:
               batching, the 4GI cohort generator
   parallel/   deep ensembles on one device: training, identification,
               prediction with the member axis written out
+  inference/  variational inference and NUTS (the fused engine runs the
+              chains on the fused kernels' lanes), diagnostics
   evals/      metrics, recalibration fits and checkpoint evaluation
-              (point models and ensembles)
+              (point models, ensembles, VI posteriors)
   train/      optimizer (clip + Adam + cosine), train_model, CLI
   utils/      checkpoint reader / writer, JAX-pytree <-> tensor conversion,
               devices, YAML config, metrics logging

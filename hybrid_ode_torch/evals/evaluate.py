@@ -6,11 +6,13 @@ kernel when a point model's config says `use_pallas`), metrics in numpy on
 the host. Ensemble checkpoints (member-stacked leaves) are scored by the
 ensemble mean and the members' spread, optionally after per-member
 test-time identification of the subject codes (the identified ensemble).
-The VI estimator is not ported yet and raises.
+A VI checkpoint (`--vi-checkpoint`) is scored by its posterior predictive.
 
     python -m hybrid_ode_torch.evals.evaluate checkpoints/accuracy_benchmark/best_model
     python -m hybrid_ode_torch.evals.evaluate checkpoints/ensemble_id/ensemble_model \
         --identify-steps 150 --identify-points 36 --vs-truth
+    python -m hybrid_ode_torch.evals.evaluate - --vi-checkpoint <dir>/vi_model \
+        --posterior-samples 100
 """
 
 from __future__ import annotations
@@ -92,6 +94,8 @@ def evaluate_model(
     config: HybridConfig,
     batch_size: int = 32,
     variational=None,
+    n_posterior_samples: int = 100,
+    generator: Optional[torch.Generator] = None,
     denormalize: bool = False,
     obs_sigma=0.0,
     ensemble: bool = False,
@@ -119,10 +123,13 @@ def evaluate_model(
     when one is given; `identify_params_steps` > 0 then also refines
     per-window multipliers on all mechanistic parameters (trust region
     `identify_param_prior`). `denormalize` reports in physical units;
-    `return_arrays` also returns (preds, unc, targets, mask)."""
-    if variational is not None:
-        raise NotImplementedError("VI posterior-predictive evaluation is not ported "
-                                  "yet: ROADMAP Queue A 13 (Bayesian inference)")
+    `return_arrays` also returns (preds, unc, targets, mask).
+
+    variational (a `VariationalInference`): predictions are the posterior
+    predictive mean over `n_posterior_samples` samples, the uncertainty its
+    spread and `obs_sigma` in quadrature; each batch draws from its own
+    generator split from `generator` (a CPU generator seeded 0 if none),
+    and the calibration metrics are reported."""
     if ensemble:
         from hybrid_ode_torch.parallel.ensemble import (
             ensemble_predictive,
@@ -131,8 +138,10 @@ def evaluate_model(
     elif identify_steps:
         raise ValueError("identify_steps requires ensemble=True "
                          "(stacked-params checkpoints)")
+    if variational is not None and generator is None:
+        generator = torch.Generator().manual_seed(0)
     point_sigma = None
-    if val_ds is not None and not ensemble:
+    if val_ds is not None and variational is None and not ensemble:
         point_sigma = fit_observation_noise(params, val_ds, config, batch_size)
 
     preds_all, unc_all, targ_all, mask_all = [], [], [], []
@@ -151,6 +160,19 @@ def evaluate_model(
             else:
                 preds, unc = ensemble_predictive(params, b, config, noise_sigma=sigma)
             preds, unc = preds.cpu().numpy(), unc.cpu().numpy()
+        elif variational is not None:
+            from hybrid_ode_torch.inference.vi import split_generator
+
+            bt = batch_to_tensors(b, variational.device)
+            with torch.no_grad():
+                controls = with_context(variational.template, bt, controls_from_batch(bt),
+                                        config)
+            mean, std = variational.posterior_predictive(
+                split_generator(generator), bt["initial_state"], bt["time_points"], controls,
+                n_samples=n_posterior_samples)
+            # parameter uncertainty and observation noise in quadrature
+            sig = torch.as_tensor(np.asarray(obs_sigma), dtype=std.dtype, device=std.device)
+            preds, unc = mean.cpu().numpy(), torch.sqrt(std ** 2 + sig ** 2).cpu().numpy()
         else:
             preds = _predict(params, b, config)
             sigma = point_sigma if point_sigma is not None else 0.1
@@ -179,7 +201,7 @@ def evaluate_model(
         metrics[f"rmse_{name.lower()}"] = float(rmse_ps[i])
         metrics[f"mae_{name.lower()}"] = float(mae_ps[i])
 
-    if ensemble or point_sigma is not None:
+    if variational is not None or ensemble or point_sigma is not None:
         metrics.update(compute_calibration_error(preds, unc, targets, mask=mask))
         metrics["coverage_80"] = compute_coverage(preds, unc, targets, 0.8, mask=mask)
         metrics["coverage_90"] = compute_coverage(preds, unc, targets, 0.9, mask=mask)
@@ -327,6 +349,10 @@ def main(argv=None) -> None:
     ap.add_argument("--vs-truth", action="store_true",
                     help="also report physical glucose RMSE against the file's noiseless "
                          "glucose_true_mmol_L column")
+    ap.add_argument("--vi-checkpoint", type=str, default=None,
+                    help="VI checkpoint dir: evaluate the variational posterior predictive "
+                         "(calibration metrics included)")
+    ap.add_argument("--posterior-samples", type=int, default=100)
     args = ap.parse_args(argv)
 
     norm_stats = None
@@ -338,13 +364,21 @@ def main(argv=None) -> None:
         val_ds, test_ds = None, ds
     else:
         _, val_ds, test_ds = split_dataset(ds, seed=42)
-    out = evaluate_checkpoint(args.checkpoint, test_ds, val_ds=val_ds,
-                              use_pallas=args.use_pallas, device=args.device,
-                              identify_steps=args.identify_steps,
-                              identify_points=args.identify_points,
-                              identify_params_steps=args.identify_params_steps,
-                              identify_param_prior=args.identify_param_prior,
-                              return_arrays=args.vs_truth)
+    if args.vi_checkpoint:
+        from hybrid_ode_torch.inference.vi import VariationalInference
+
+        vi = VariationalInference.restore(args.vi_checkpoint, device=args.device)
+        out = evaluate_model(vi.template, test_ds, vi.config, variational=vi,
+                             n_posterior_samples=args.posterior_samples,
+                             obs_sigma=vi.noise_sigma, return_arrays=args.vs_truth)
+    else:
+        out = evaluate_checkpoint(args.checkpoint, test_ds, val_ds=val_ds,
+                                  use_pallas=args.use_pallas, device=args.device,
+                                  identify_steps=args.identify_steps,
+                                  identify_points=args.identify_points,
+                                  identify_params_steps=args.identify_params_steps,
+                                  identify_param_prior=args.identify_param_prior,
+                                  return_arrays=args.vs_truth)
     if args.vs_truth:
         metrics, (preds, _, _, _) = out
         metrics["glucose_rmse_vs_truth_mmol"] = glucose_truth_rmse(preds, test_ds, args.data)

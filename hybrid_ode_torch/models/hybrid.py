@@ -836,3 +836,15 @@ def flat_to_params(flat: Mapping[str, torch.Tensor],
         else:
             raise KeyError(f"unknown parameter prefix: {name}")
     return out
+
+
+def forward_with_params(flat_params: Mapping[str, torch.Tensor], template: Mapping[str, Any],
+                        y0: torch.Tensor, ts: torch.Tensor, controls: Optional[Controls] = None,
+                        config: HybridConfig = HybridConfig(), **solver_overrides) -> torch.Tensor:
+    """Forward pass under substituted parameters: `flat_params` (flat names,
+    'ode_a_GI', 'nn_w0', ...) merged onto `template`; a batch (B, n) or one
+    trajectory (n,)."""
+    merged = flat_to_params(flat_params, template)
+    if y0.ndim == 2:
+        return batched_forward(merged, y0, ts, controls, config, **solver_overrides)
+    return forward(merged, y0, ts, controls, config, **solver_overrides)

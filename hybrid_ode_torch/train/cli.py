@@ -9,9 +9,20 @@ Trains on CUDA unless `--device cpu`; writes runs/<experiment>/
 final_model; with `--ensemble K` > 1 a K-member deep ensemble trained in one
 pass, `ensemble_model`) under the working directory. Reading and writing the
 YAML config needs PyYAML; `main(argv, config=...)` takes the config as a
-dict instead (written as config.json), which needs none. `--vi` and
-`--mcmc` train a point model when the merged config sets `ablation.no_bayes`
-(as the JAX CLI does) and are otherwise not ported.
+dict instead (written as config.json), which needs none.
+
+Bayesian runs, unless the merged config sets `ablation.no_bayes` (then, as
+in the JAX CLI, `--vi` and `--mcmc` train a point model):
+
+    python -m hybrid_ode_torch.train.cli --config configs/4gi_vi.yaml --vi
+    python -m hybrid_ode_torch.train.cli --config configs/default.yaml --solver rk4 \
+        --mcmc --mcmc-engine fused --mcmc-chains 1024 --mcmc-warmup 100 --mcmc-samples 200
+
+`--vi`: a MAP pretrain of at most 20 epochs, then variational inference
+(`vi_settings`), checkpoint `vi_model`. `--mcmc`: a MAP pretrain of at most
+50 epochs, then NUTS on the first validation batch (`--mcmc-engine fused`
+needs an rk4 / relu model without context), `mcmc_samples.npz` and
+`mcmc_results` (NetCDF through h5py, else npz).
 """
 
 from __future__ import annotations
@@ -32,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to data file (default: config's data.path)")
     p.add_argument("--solver", type=str, default=None,
                    choices=["dopri5", "rk45", "dop853", "radau", "bdf", "rk4", "bosh3", "euler"])
-    p.add_argument("--vi", action="store_true", help="Variational inference (not ported)")
-    p.add_argument("--mcmc", action="store_true", help="NUTS after MAP pretrain (not ported)")
+    p.add_argument("--vi", action="store_true", help="Variational inference after a MAP pretrain")
+    p.add_argument("--mcmc", action="store_true", help="NUTS after a MAP pretrain")
     p.add_argument("--no-nn", dest="no_nn", action="store_true")
     p.add_argument("--no-bayes", dest="no_bayes", action="store_true")
     p.add_argument("--no-physics", dest="no_physics", action="store_true")
@@ -73,14 +84,6 @@ def main(argv=None, config=None) -> None:
     base = (load_config(args.config) if config is None
             else _deep_update(default_config(), json.loads(json.dumps(config))))
     cfg = merge_cli_overrides(base, args)
-    # as the JAX CLI: the merged config's no_bayes (flag or YAML) turns
-    # --vi / --mcmc into point-model training
-    bayes = not cfg["ablation"]["no_bayes"]
-    if args.vi and bayes:
-        raise NotImplementedError("--vi is not ported yet: ROADMAP Queue A 13")
-    if args.mcmc and bayes:
-        raise NotImplementedError("--mcmc is not ported yet: ROADMAP Queue A 13")
-
     device = resolve_device(args.device)
     if args.experiment_name:
         experiment = args.experiment_name
@@ -116,8 +119,18 @@ def main(argv=None, config=None) -> None:
                                               level=cfg["data"].get("split_level", "window"))
     logger.info("dataset: %d windows (train %d / val %d / test %d)",
                 len(ds), len(train_ds), len(val_ds), len(test_ds))
+    seed = cfg.get("seed", 0)
+    # as the JAX CLI: the merged config's no_bayes (flag or YAML) turns
+    # --vi / --mcmc into point-model training
+    bayes = not cfg["ablation"]["no_bayes"]
+    if args.vi and bayes:
+        _run_vi(cfg, train_ds, val_ds, ckpt_dir, seed, device)
+        return
+    if args.mcmc and bayes:
+        _run_mcmc(cfg, args, train_ds, val_ds, ckpt_dir, log_dir, seed, device)
+        return
     if args.ensemble > 1:
-        _run_ensemble(cfg, args.ensemble, train_ds, val_ds, ckpt_dir, cfg.get("seed", 0), device)
+        _run_ensemble(cfg, args.ensemble, train_ds, val_ds, ckpt_dir, seed, device)
         return
     result = train_model(cfg, train_ds, val_ds, str(ckpt_dir), str(log_dir), device=device)
     logger.info("training done: best val loss %.4f over %d epochs",
@@ -180,6 +193,65 @@ def _run_ensemble(cfg, K, train_ds, val_ds, ckpt_dir, seed, device):
                     {"config": cfg, "n_members": K, "val_rmse_ensemble": val_rmse,
                      "best_val": [float(x) for x in best_val],
                      "epoch": epochs, "val_loss": val_rmse})
+
+
+def _run_vi(cfg, train_ds, val_ds, ckpt_dir, seed, device):
+    """A short MAP pretrain (its checkpoints saved too: the VI template is
+    its result), then VI with the config's `vi_settings` and priors;
+    checkpoint `vi_model`."""
+    from hybrid_ode_torch.inference.vi import VariationalInference
+    from hybrid_ode_torch.models.hybrid import config_from_dict
+    from hybrid_ode_torch.train.loop import train_model
+
+    logger.info("VI: MAP pretrain (<=20 epochs)")
+    pre = train_model(cfg, train_ds, val_ds, str(ckpt_dir), None,
+                      max_epochs=min(20, cfg["training"]["epochs"]), device=device)
+    vcfg = cfg.get("vi_settings") or {}
+    vi = VariationalInference(
+        pre.params, config_from_dict(cfg),
+        prior_params=cfg.get("ode_param_priors"),
+        learning_rate=cfg["training"]["learning_rate"],
+        n_samples=vcfg.get("n_samples", 5),
+        noise_sigma=vcfg.get("noise_sigma", 0.35),
+        kl_annealing=vcfg.get("kl_annealing", False),
+        annealing_epochs=vcfg.get("annealing_epochs", 50),
+        include_nn=vcfg.get("include_nn", False),
+    )
+    vi.train(train_ds, val_ds, epochs=cfg["training"]["epochs"],
+             batch_size=cfg["training"]["batch_size"],
+             early_stopping_patience=cfg["training"].get("early_stopping_patience", 10),
+             seed=seed)
+    vi.save_checkpoint(str(Path(ckpt_dir) / "vi_model"))
+    logger.info("VI training complete; checkpoint at %s", ckpt_dir)
+
+
+def _run_mcmc(cfg, args, train_ds, val_ds, ckpt_dir, log_dir, seed, device):
+    """A MAP pretrain of at most 50 epochs, then NUTS on the first
+    validation batch with the config's own solver; writes mcmc_samples.npz
+    and mcmc_results and logs the posterior summary."""
+    import numpy as np
+    import torch
+
+    from hybrid_ode_torch.data.dataset import batch_iterator
+    from hybrid_ode_torch.inference.mcmc import posterior_summary, run_nuts, save_mcmc_results
+    from hybrid_ode_torch.models.hybrid import config_from_dict
+    from hybrid_ode_torch.train.loop import train_model
+
+    logger.info("MCMC: MAP pretrain (<=50 epochs)")
+    pre = train_model(cfg, train_ds, val_ds, str(ckpt_dir), str(log_dir),
+                      max_epochs=min(50, cfg["training"]["epochs"]), device=device)
+    batch = next(batch_iterator(val_ds, cfg["training"]["batch_size"], shuffle=False))
+    samples = run_nuts(
+        pre.params, batch, config_from_dict(cfg),
+        generator=torch.Generator(device).manual_seed(seed),
+        num_samples=args.mcmc_samples, num_warmup=args.mcmc_warmup,
+        n_chains=args.mcmc_chains, engine=args.mcmc_engine,
+    )
+    np.savez(Path(ckpt_dir) / "mcmc_samples.npz", **samples)
+    save_mcmc_results(samples, str(Path(ckpt_dir) / "mcmc_results"))
+    for name, st in posterior_summary(samples).items():
+        logger.info("  %s: mean=%.4g std=%.3g [%.4g, %.4g]",
+                    name, st["mean"], st["std"], st["q025"], st["q975"])
 
 
 if __name__ == "__main__":

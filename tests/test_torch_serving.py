@@ -124,8 +124,16 @@ def test_evaluate_checkpoint_matches_jax(use_pallas, splits):
 
 def test_evaluate_unported_branches_raise(splits):
     _, (_, tva, tte) = splits
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        teval.evaluate_checkpoint(CKPT, tte, device="cpu", variational=object())
+    # the VI branch is ported: a posterior over the checkpoint's ODE
+    # parameters scores with the calibration metrics
+    from hybrid_ode_torch.inference.vi import VariationalInference
+
+    state, meta = load_checkpoint(CKPT)
+    vi = VariationalInference(params_from_numpy(state["params"], "cpu"),
+                              thyb.config_from_dict(meta["config"]))
+    metrics = teval.evaluate_checkpoint(CKPT, tte, device="cpu", variational=vi,
+                                        n_posterior_samples=2, obs_sigma=0.1)
+    assert np.isfinite(metrics["rmse"]) and np.isfinite(metrics["ece"])
     # identification at evaluation is for ensembles only, as in the JAX package
     with pytest.raises(ValueError, match="identify_steps requires ensemble=True"):
         teval.evaluate_checkpoint(CKPT, tte, device="cpu", identify_steps=5)

@@ -246,9 +246,13 @@ def test_cli_trains_on_cpu(tmp_path, monkeypatch):
     assert (tmp_path / "checkpoints" / "tiny" / "final_model" / "leaves.npz").exists()
     assert (tmp_path / "checkpoints" / "tiny" / "config.yaml").exists()
     assert (tmp_path / "runs" / "tiny" / "metrics.jsonl").exists()
-    for flags, match in ((["--vi"], "Queue A 13"), (["--mcmc"], "Queue A 13")):
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.main(["--config", "tiny.yaml", "--device", "cpu", *flags])
+    # the Bayesian branches are ported (tests/test_torch_bayes.py and
+    # tests/test_torch_mcmc.py hold them to the JAX package)
+    tcli.main(["--config", "tiny.yaml", "--experiment-name", "vi", "--device", "cpu", "--vi"])
+    assert (tmp_path / "checkpoints" / "vi" / "vi_model" / "leaves.npz").exists()
+    tcli.main(["--config", "tiny.yaml", "--experiment-name", "mcmc", "--device", "cpu",
+               "--mcmc", "--mcmc-chains", "2", "--mcmc-warmup", "2", "--mcmc-samples", "2"])
+    assert (tmp_path / "checkpoints" / "mcmc" / "mcmc_samples.npz").exists()
     assert tcli.build_parser().parse_args([]).device == "cuda"
 
 
