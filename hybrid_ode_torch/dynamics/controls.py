@@ -42,7 +42,7 @@ def interp(t: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     batch = xp.shape[:-1]
     x = torch.as_tensor(t, dtype=xp.dtype, device=xp.device).expand(batch).contiguous()
     T = xp.shape[-1]
-    i = torch.searchsorted(xp.contiguous(), x.unsqueeze(-1), right=True).clamp(1, T - 1)
+    i = torch.searchsorted(xp.contiguous(), x.unsqueeze(-1).contiguous(), right=True).clamp(1, T - 1)
     xl = torch.gather(xp, -1, i - 1).squeeze(-1)
     xr = torch.gather(xp, -1, i).squeeze(-1)
     fl = torch.gather(fp, -1, i - 1).squeeze(-1)

@@ -1,10 +1,10 @@
 """`odeint` front-end with the reference solver names.
 
 Port of `hybrid_ode_tpu/solvers/api.py`: the adaptive explicit solvers
-(dopri5, rk45, dop853, bosh3) in 'scan' / 'while' modes, dense output
-('dense': dopri5, rk45, dop853), the backsolve adjoint and the fixed-grid
-'rk4' / 'euler'. The implicit solvers raise NotImplementedError naming the
-ROADMAP item that ports them.
+(dopri5, rk45, dop853, bosh3) and the implicit ones (radau, variable-order
+bdf, bdf2) in 'scan' / 'while' modes, dense output ('dense': dopri5, rk45,
+dop853, radau, bdf), the backsolve adjoint and the fixed-grid 'rk4' /
+'euler'.
 """
 
 from __future__ import annotations
@@ -13,13 +13,13 @@ from typing import Any, Callable
 
 import torch
 
+from hybrid_ode_torch.solvers.bdf import odeint_bdf
 from hybrid_ode_torch.solvers.explicit import odeint_erk
 from hybrid_ode_torch.solvers.fixed import odeint_fixed
+from hybrid_ode_torch.solvers.implicit import odeint_bdf2, odeint_radau
 from hybrid_ode_torch.solvers.tableaus import TABLEAUS
 
 SOLVERS = ("dopri5", "rk45", "dop853", "bosh3", "radau", "bdf", "bdf2", "rk4", "euler")
-
-_IMPLICIT = "ROADMAP Queue A 14 (implicit solvers)"
 
 
 def odeint(
@@ -67,21 +67,23 @@ def odeint(
                 "mode='dense' uses discretize-then-optimize gradients; "
                 "adjoint='backsolve' is unsupported with dense output"
             )
-        if solver in ("radau", "bdf"):
-            raise NotImplementedError(
-                f"mode='dense' with solver {solver!r} is not ported yet: {_IMPLICIT}")
-        if solver not in ("dopri5", "rk45", "dop853"):
+        if solver not in ("dopri5", "rk45", "dop853", "radau", "bdf"):
             raise ValueError("mode='dense' is implemented for dopri5/rk45/dop853/radau/bdf")
-        from hybrid_ode_torch.solvers.dense import odeint_dop853_dense, odeint_dopri5_dense
+        from hybrid_ode_torch.solvers.dense import (
+            odeint_bdf_dense,
+            odeint_dop853_dense,
+            odeint_dopri5_dense,
+            odeint_radau_dense,
+        )
 
-        dense_fn = odeint_dop853_dense if solver == "dop853" else odeint_dopri5_dense
+        dense_fn = {"dop853": odeint_dop853_dense,
+                    "radau": odeint_radau_dense,
+                    "bdf": odeint_bdf_dense}.get(solver, odeint_dopri5_dense)
         return dense_fn(
             f, y0, ts, args, rtol=rtol, atol=atol,
             max_steps=max_steps_per_interval * max(ts.shape[-1] - 1, 1) // 4,
             return_stats=return_stats,
         )
-    if solver in ("radau", "bdf", "bdf2"):
-        raise NotImplementedError(f"solver {solver!r} is not ported yet: {_IMPLICIT}")
     if adjoint == "backsolve":
         from hybrid_ode_torch.solvers.adjoint import odeint_backsolve
 
@@ -100,6 +102,16 @@ def odeint(
             checkpoint_intervals=checkpoint_intervals,
             return_stats=return_stats,
             norm_weights=norm_weights,
+        )
+    implicit = {"radau": odeint_radau, "bdf": odeint_bdf, "bdf2": odeint_bdf2}
+    if solver in implicit:
+        # 'bdf' is the variable-order BDF(1-5), the scipy.BDF-class method the
+        # reference maps the name to; 'bdf2' the cheap variable-step BDF2
+        return implicit[solver](
+            f, y0, ts, args, rtol=rtol, atol=atol, mode=mode,
+            max_steps_per_interval=max_steps_per_interval,
+            checkpoint_intervals=checkpoint_intervals,
+            return_stats=return_stats,
         )
     if solver in ("rk4", "euler"):
         if return_stats:

@@ -1,11 +1,12 @@
 """Dense-output adaptive solvers: free-running steps plus interpolation.
 
-Port of the dopri5 and dop853 parts of `hybrid_ode_tpu/solvers/dense.py`.
-Every other adaptive solver forces steps onto the observation grid; these
-integrate the whole span [ts[0], ts[-1]] with free step-size control and
-report each output through the method's continuous extension (CONTD5 for
-dopri5, the 7th-order extension of DOP853), so the number of field
-evaluations is set by accuracy, not by the grid.
+Port of `hybrid_ode_tpu/solvers/dense.py`. Every other adaptive solver
+forces steps onto the observation grid; these integrate the whole span
+[ts[0], ts[-1]] with free step-size control and report each output through
+the method's continuous extension (CONTD5 for dopri5, the 7th-order
+extension of DOP853, the collocation cubic of Radau IIA, the
+backward-difference polynomial of BDF), so the number of field evaluations
+is set by accuracy, not by the grid.
 
 Batching is written out: y0 (..., n), ts (T,) or (..., T); each sample has
 its own clock, step size and done flag. The loop runs exactly `max_steps`
@@ -198,3 +199,127 @@ def odeint_dop853_dense(
 
     return _dense_solve(step, f, y0, ts, args, tab.error_order, rtol_e, atol_e, max_steps,
                         checkpoint_body, return_stats)
+
+
+def odeint_radau_dense(
+    f: Callable,
+    y0: torch.Tensor,
+    ts: torch.Tensor,
+    args: Any,
+    *,
+    rtol: float = 1e-6,
+    atol: float = 1e-8,
+    max_steps: int = 256,
+    checkpoint_body: bool = True,
+    return_stats: bool = False,
+):
+    """Dense-output Radau IIA(5): free-running stiff steps, with the
+    collocation polynomial as the continuous extension (Hairer-Wanner
+    RADAU5's CONTR5). The cubic P with P(t) = y and P(t + c_i h) = y + Z_i
+    interpolates the step to uniform order 4 from the stage increments the
+    Newton solve already holds: no extra field evaluation."""
+    from hybrid_ode_torch.solvers import implicit as _imp
+
+    dtype = y0.dtype
+    rtol_e, atol_e = _exp._effective_tols(rtol, atol, dtype)
+    step_full = _imp.make_radau_step_full(f, rtol_e, atol_e)
+    # Lagrange basis over the nodes [0, c1, c2, c3], ascending powers (4x4)
+    nodes = np.concatenate([[0.0], _imp.RADAU_C])
+    L = np.zeros((4, 4))
+    for j in range(4):
+        pj = np.poly1d([1.0])
+        for m in range(4):
+            if m != j:
+                pj *= np.poly1d([1.0, -nodes[m]]) / (nodes[j] - nodes[m])
+        L[j] = pj.coeffs[::-1]
+    L_t = torch.as_tensor(L.T, dtype=dtype, device=y0.device)          # (4 powers, 4 basis)
+    pw = torch.arange(4, dtype=dtype, device=y0.device)
+
+    def step(t, y, fy, h_eff, theta):
+        y1, f1, err_norm, Z = step_full(t, y, fy, h_eff, args)
+        # P(theta) = sum_j L_j(theta) p_j with p = [y, y + Z_0, y + Z_1, y + Z_2]
+        th = torch.clamp(theta, 0.0, 1.0)
+        basis = torch.matmul(th[..., None] ** pw, L_t)                  # (..., T, 4)
+        pvals = torch.cat([y[..., None, :], y[..., None, :] + Z], dim=-2)  # (..., 4, n)
+        return y1, f1, err_norm.detach(), torch.matmul(basis, pvals)
+
+    return _dense_solve(step, f, y0, ts, args, 3, rtol_e, atol_e, max_steps, checkpoint_body,
+                        return_stats)
+
+
+def odeint_bdf_dense(
+    f: Callable,
+    y0: torch.Tensor,
+    ts: torch.Tensor,
+    args: Any,
+    *,
+    rtol: float = 1e-6,
+    atol: float = 1e-8,
+    max_steps: int = 256,
+    checkpoint_body: bool = True,
+    return_stats: bool = False,
+):
+    """Dense-output variable-order BDF(1-5): free-running steps, with the
+    backward-difference interpolating polynomial (scipy's BdfDenseOutput).
+    After an accepted step to t1 = t + h at order k the difference array
+    is the polynomial through the last k+1 solution points:
+
+        y(x) = D[0] + sum_{j=1..k} D[j] prod_{m<j} (x - (t1 - m h)) / (h (m+1))
+
+    so reporting an output costs no field evaluation. Its carry (difference
+    array, order, equal-step count) is not `_dense_solve`'s, so the masked
+    loop is its own, with the same step-by-step checkpointing."""
+    from hybrid_ode_torch.solvers import bdf as _bdf
+
+    dtype = y0.dtype
+    batch = y0.shape[:-1]
+    ts = _exp._grid(y0, ts)
+    T, n = ts.shape[-1], y0.shape[-1]
+    MO = _bdf.MAX_ORDER
+    rtol_e, atol_e = _exp._effective_tols(rtol, atol, dtype)
+    t0, t_end = ts[..., 0], ts[..., -1]
+    f0 = f(t0, y0, args)
+    h0 = _exp.initial_step_size(f, t0, y0, f0, args, 1, rtol_e, atol_e)
+    D0 = torch.cat([y0[..., None, :], (h0[..., None] * f0)[..., None, :],
+                    y0.new_zeros((*batch, MO + 1, n))], dim=-2)
+    ys0 = torch.cat([y0[..., None, :], y0.new_zeros(*batch, T - 1, n)], dim=-2)
+    m_arr = torch.arange(MO, dtype=dtype, device=y0.device)
+    j_arr = torch.arange(1, MO + 1, device=y0.device)
+
+    def body(t, D, k, h, n_eq, ys, done, nacc, nrej):
+        (h_eff, accept, _d, move, finish, D_acc, D_a, k_a, h_a, _ready, n_eq_a, D_rej,
+         h_rej) = _bdf._bdf_trial(f, t, t_end, D, k, h, n_eq, done, args, rtol_e, atol_e)
+        # dense fill from the post-acceptance difference array
+        he = h_eff[..., None]
+        theta = (ts - t[..., None]) / he                                # (..., T)
+        x = t[..., None] + torch.clamp(theta, 0.0, 1.0) * he
+        t1 = (t + h_eff)[..., None, None]
+        terms = (x[..., None] - (t1 - m_arr * he[..., None])) / (he[..., None] * (m_arr + 1.0))
+        p = torch.cumprod(terms, dim=-1)                                # (..., T, MO)
+        jmask = (j_arr <= k[..., None]).to(dtype)[..., None, :]
+        interp = D_acc[..., None, 0, :] + torch.matmul(p * jmask, D_acc[..., 1:MO + 1, :])
+        in_span = (theta > 0.0) & (theta <= 1.0) & move[..., None]
+        ys = torch.where(in_span[..., None], interp, ys)
+
+        t = torch.where(finish, t_end, torch.where(move, t + h_eff, t))
+        D = _bdf._select(done, move, D, D_a, D_rej)
+        k = _bdf._select(done, move, k, k_a, k)
+        h = _bdf._select(done, move, h, h_a, h_rej)
+        n_eq = _bdf._select(done, move, n_eq, n_eq_a, torch.zeros_like(n_eq))
+        nacc = nacc + move.to(torch.int32)
+        nrej = nrej + (~accept & ~done).to(torch.int32)
+        return t, D, k, h, n_eq, ys, done | finish, nacc, nrej
+
+    zeros = torch.zeros(batch, dtype=torch.int32, device=y0.device)
+    carry = (t0, D0, torch.ones(batch, dtype=torch.int64, device=y0.device), h0,
+             torch.zeros(batch, dtype=torch.int64, device=y0.device), ys0,
+             torch.zeros(batch, dtype=torch.bool, device=y0.device), zeros, zeros)
+    for _ in range(max_steps):
+        if checkpoint_body and torch.is_grad_enabled():
+            carry = checkpoint(body, *carry, use_reentrant=False)
+        else:
+            carry = body(*carry)
+    ys, done, nacc, nrej = carry[5:]
+    if return_stats:
+        return ys, _exp.StepStats(n_accepted=nacc, n_rejected=nrej, success=done)
+    return ys

@@ -193,6 +193,66 @@ def _interval(step, t0, t1, y0, fy0, h0, args, max_steps, error_order, stop_earl
     return y, fy, h, done, nacc, nrej
 
 
+def _grid(y0: torch.Tensor, ts) -> torch.Tensor:
+    """Output times (T,) or (..., T) as per-sample grids (..., T) of y0's dtype."""
+    ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
+    return ts.expand(*y0.shape[:-1], ts.shape[-1])
+
+
+def _intervals(one_interval, ts, carry, mode, checkpoint_intervals):
+    """Run `one_interval(t0, t1, *carry) -> (*carry, y, done, nacc, nrej)`
+    over the output grid; scan mode checkpoints each interval under autograd.
+    Returns the interval ends' ys and the per-interval done / nacc / nrej."""
+    ys, dones, naccs, nrejs = [], [], [], []
+    k = len(carry)
+    for i in range(ts.shape[-1] - 1):
+        t0, t1 = ts[..., i], ts[..., i + 1]
+        if mode == "scan" and checkpoint_intervals and torch.is_grad_enabled():
+            out = checkpoint(one_interval, t0, t1, *carry, use_reentrant=False)
+        else:
+            out = one_interval(t0, t1, *carry)
+        carry = out[:k]
+        y, done, nacc, nrej = out[k:]
+        ys.append(y)
+        dones.append(done)
+        naccs.append(nacc)
+        nrejs.append(nrej)
+    return ys, dones, naccs, nrejs
+
+
+def _finish(y0, ys, dones, naccs, nrejs, return_stats):
+    """ys (..., T, n) with y0 first, and with return_stats per-sample StepStats."""
+    ys_full = torch.stack([y0] + ys, dim=-2)
+    if return_stats:
+        return ys_full, StepStats(n_accepted=torch.stack(naccs).sum(0, dtype=torch.int32),
+                                  n_rejected=torch.stack(nrejs).sum(0, dtype=torch.int32),
+                                  success=torch.stack(dones).all(0))
+    return ys_full
+
+
+def odeint_adaptive(f: Callable, y0: torch.Tensor, ts, args: Any, step: Callable,
+                    error_order: int, rtol_e: float, atol_e: float, mode: str,
+                    max_steps_per_interval: int, checkpoint_intervals: bool,
+                    return_stats: bool):
+    """The one-step drivers' shared loop: `step(t, y, fy, h, args) -> (y1,
+    f1, err_norm)` (an explicit RK step or a Radau step) over every output
+    interval with `_interval`, from the automatic initial step."""
+    if mode not in ("scan", "while"):
+        raise ValueError(f"unknown mode: {mode!r}")
+    ts = _grid(y0, ts)
+    f0 = f(ts[..., 0], y0, args)
+    h = initial_step_size(f, ts[..., 0], y0, f0, args, error_order, rtol_e, atol_e)
+
+    def interval(t0, t1, y, fy, h):
+        y1, f1, h1, done, nacc, nrej = _interval(step, t0, t1, y, fy, h, args,
+                                                 max_steps_per_interval, error_order,
+                                                 stop_early=mode == "while")
+        return y1, f1, h1, y1, done, nacc, nrej
+
+    out = _intervals(interval, ts, (y0, f0, h), mode, checkpoint_intervals)
+    return _finish(y0, *out, return_stats)
+
+
 def odeint_erk(
     f: Callable,
     y0: torch.Tensor,
@@ -213,38 +273,7 @@ def odeint_erk(
     y0 (..., n); ts (T,) shared or (..., T) per sample, strictly increasing.
     Returns ys (..., T, n) with ys[..., 0, :] = y0, and with return_stats
     per-sample StepStats of shape (...)."""
-    if mode not in ("scan", "while"):
-        raise ValueError(f"unknown mode: {mode!r}")
-    dtype = y0.dtype
-    batch = y0.shape[:-1]
-    ts = torch.as_tensor(ts, dtype=dtype, device=y0.device)
-    ts = ts.expand(*batch, ts.shape[-1])
-    rtol_e, atol_e = _effective_tols(rtol, atol, dtype)
+    rtol_e, atol_e = _effective_tols(rtol, atol, y0.dtype)
     step = make_erk_step(f, tab, rtol_e, atol_e, norm_weights)
-
-    f0 = f(ts[..., 0], y0, args)
-    h = initial_step_size(f, ts[..., 0], y0, f0, args, tab.error_order, rtol_e, atol_e)
-
-    def one_interval(t0, t1, y, fy, h):
-        return _interval(step, t0, t1, y, fy, h, args, max_steps_per_interval, tab.error_order,
-                         stop_early=mode == "while")
-
-    y, fy = y0, f0
-    ys, dones, naccs, nrejs = [y0], [], [], []
-    for i in range(ts.shape[-1] - 1):
-        t0, t1 = ts[..., i], ts[..., i + 1]
-        if mode == "scan" and checkpoint_intervals and torch.is_grad_enabled():
-            y, fy, h, done, nacc, nrej = checkpoint(one_interval, t0, t1, y, fy, h,
-                                                    use_reentrant=False)
-        else:
-            y, fy, h, done, nacc, nrej = one_interval(t0, t1, y, fy, h)
-        ys.append(y)
-        dones.append(done)
-        naccs.append(nacc)
-        nrejs.append(nrej)
-    ys_full = torch.stack(ys, dim=-2)
-    if return_stats:
-        return ys_full, StepStats(n_accepted=torch.stack(naccs).sum(0, dtype=torch.int32),
-                                  n_rejected=torch.stack(nrejs).sum(0, dtype=torch.int32),
-                                  success=torch.stack(dones).all(0))
-    return ys_full
+    return odeint_adaptive(f, y0, ts, args, step, tab.error_order, rtol_e, atol_e, mode,
+                           max_steps_per_interval, checkpoint_intervals, return_stats)

@@ -29,6 +29,7 @@ import torch
 from hybrid_ode_torch.data.dataset import GlucoseDataset, batch_iterator, batch_to_tensors, pad_batch
 from hybrid_ode_torch.models.hybrid import HybridConfig, config_from_dict, hybrid_loss, init_hybrid_params
 from hybrid_ode_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from hybrid_ode_torch.utils.convert import optax_state_to_port
 from hybrid_ode_torch.utils.device import resolve_device
 from hybrid_ode_torch.utils.logging import MetricsLogger
 
@@ -113,12 +114,19 @@ class Optimizer:
             nu.setdefault(g, {})[n] = st.get("exp_avg_sq", torch.zeros_like(t)).detach().clone()
         return {"count": torch.tensor(self.count, dtype=torch.int32), "mu": mu, "nu": nu}
 
-    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+    def load_state_tree(self, tree: Any) -> None:
+        """Restore the state a checkpoint saved: the port's {"count", "mu",
+        "nu"} tree, or the JAX train_model's optax state
+        (`utils.convert.optax_state_to_port`), whose schedule count places
+        the cosine decay where it stopped."""
         if not (isinstance(tree, dict) and set(tree) == {"count", "mu", "nu"}):
-            raise ValueError("optimizer state is not the port's {count, mu, nu} tree; resuming "
-                             "from a JAX checkpoint's optax state is not ported (ROADMAP)")
+            tree = optax_state_to_port(tree)
         self.count = int(np.asarray(tree["count"]))
+        schedule_count = int(np.asarray(tree.get("schedule_count", self.count)))
         for (g, n), t in self._train.items():
+            if n not in tree["mu"].get(g, {}) or n not in tree["nu"].get(g, {}):
+                raise ValueError(f"the saved optimizer state has no moments for {g}.{n}, "
+                                 "which trains under this config")
             self._adam.state[t] = {
                 "step": torch.tensor(float(self.count)),
                 "exp_avg": torch.as_tensor(np.asarray(tree["mu"][g][n]), dtype=t.dtype,
@@ -126,9 +134,9 @@ class Optimizer:
                 "exp_avg_sq": torch.as_tensor(np.asarray(tree["nu"][g][n]), dtype=t.dtype,
                                               device=t.device).clone(),
             }
-        self._sched.last_epoch = self.count
+        self._sched.last_epoch = schedule_count
         for group in self._adam.param_groups:
-            group["lr"] = self.learning_rate * self.schedule(self.count)
+            group["lr"] = self.learning_rate * self.schedule(schedule_count)
 
 
 def make_optimizer(learning_rate: float, epochs: int, steps_per_epoch: int,
@@ -213,8 +221,9 @@ def train_model(
     """Point-estimate training with best / final checkpoints and early
     stopping, on `device` (CUDA unless the caller asks for the CPU).
 
-    resume_from: a checkpoint written by this function; restores params AND
-    optimizer state and continues from the epoch after the saved one.
+    resume_from: a checkpoint written by this function or by the JAX
+    package's train_model (optax state); restores params AND optimizer state
+    and continues from the epoch after the saved one.
     history holds per-epoch train_loss / val_loss / epoch_time and per-step
     step_loss / grad_norm / solver_success (the share of windows whose
     adaptive solve stayed within its step budget; 1 for fixed-grid solvers)."""

@@ -12,8 +12,9 @@ from the result by `hybrid_ode_torch.utils.convert.params_from_numpy`.
 `save_checkpoint` writes the same two files, leaves numbered in the order
 the JSON spec walks the tree (dict keys sorted, as jax flattens them), so
 params and metadata cross-load both ways. The port's optimizer state is
-{"count", "mu", "nu"} (`hybrid_ode_torch/train/loop.py`), not optax's
-state tree: it resumes within the port only.
+{"count", "mu", "nu"} (`hybrid_ode_torch/train/loop.py`); the port also
+resumes from the JAX package's optax state
+(`hybrid_ode_torch/utils/convert.py::optax_state_to_port`).
 """
 
 from __future__ import annotations

@@ -221,9 +221,12 @@ def test_odeint_rk4_exponential_decay_and_unported_solvers():
     np.testing.assert_allclose(ys[0, :, 0].numpy(), np.exp(-2.0 * ts.numpy()), rtol=1e-5)
     ys = t_odeint(lambda t, y, a: -a * y, torch.ones(2, 1), ts, 2.0, solver="dopri5")
     np.testing.assert_allclose(ys[0, :, 0].numpy(), np.exp(-2.0 * ts.numpy()), rtol=1e-5)
-    for name in ("radau", "bdf", "bdf2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 14"):
-            t_odeint(lambda t, y, a: -y, torch.ones(1), ts, solver=name)
+    for name in ("radau", "bdf", "bdf2"):  # ported (ROADMAP Queue A 14)
+        ys = t_odeint(lambda t, y, a: -a * y, torch.ones(2, 1, dtype=torch.float64),
+                      ts.double(), 2.0, solver=name, mode="while", rtol=1e-6, atol=1e-9,
+                      max_steps_per_interval=128)
+        np.testing.assert_allclose(ys[0, :, 0].numpy(), np.exp(-2.0 * ts.numpy()), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
     with pytest.raises(ValueError, match="unknown solver"):
         t_odeint(lambda t, y, a: -y, torch.ones(1), ts, solver="nope")
 

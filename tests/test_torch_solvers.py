@@ -8,7 +8,7 @@ through scan mode against `jax.grad` (1e-8), dense output for dopri5 and
 dop853, the backsolve adjoint with and without the seminorm, and the
 batch-synchronised solver (interval and global span, kink stops, budget
 overflow, rk45 taking the interval span). Also the exact and scipy oracles
-of the JAX suite, and the implicit solvers still raising.
+of the JAX suite, and the implicit solvers on the exponential decay.
 """
 
 import jax
@@ -436,13 +436,21 @@ def test_while_mode_counts_one_host_sync_per_trial_step():
 
 
 def test_implicit_solvers_still_raise_naming_item_14():
-    ts = torch.linspace(0.0, 1.0, 3)
-    for solver in ("radau", "bdf", "bdf2"):
-        with pytest.raises(NotImplementedError, match="Queue A 14"):
-            t_odeint(lambda t, y, a: -y, torch.ones(1), ts, solver=solver)
-    for solver in ("radau", "bdf"):
-        with pytest.raises(NotImplementedError, match="Queue A 14"):
-            t_odeint(lambda t, y, a: -y, torch.ones(1), ts, solver=solver, mode="dense")
+    """The implicit solvers are ported (ROADMAP Queue A 14): radau, bdf and
+    bdf2 in scan and while mode and dense radau / bdf solve the exponential
+    decay to 1e-5; the option checks still raise."""
+    ts = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
+    exact = np.exp(-ts.numpy())
+    runs = [(s, m) for s in ("radau", "bdf", "bdf2") for m in ("scan", "while")]
+    runs += [("radau", "dense"), ("bdf", "dense")]
+    for solver, mode in runs:
+        # BDF2 is order 2: about 75 steps per interval at rtol 1e-6; dense
+        # mode's budget is max_steps_per_interval * (T - 1) / 4 trial steps
+        ys = t_odeint(lambda t, y, a: -y, torch.ones(1, dtype=torch.float64), ts, solver=solver,
+                      mode=mode, rtol=1e-6 if solver == "bdf2" else 1e-7, atol=1e-9,
+                      max_steps_per_interval=64 if solver != "bdf2" and mode != "dense" else 256)
+        np.testing.assert_allclose(ys[:, 0].numpy(), exact, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{solver} {mode}")
     with pytest.raises(ValueError, match="norm_weights"):
         t_odeint(lambda t, y, a: -y, torch.ones(1), ts, mode="dense", norm_weights=[1.0])
     with pytest.raises(ValueError, match="return_stats"):

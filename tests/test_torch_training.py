@@ -216,9 +216,10 @@ def test_resume_continues_the_optimizer(small_run, tmp_path):
     assert int(after["opt_state"]["count"]) == 4
     # the resumed step used the saved moments: mu moved from the saved value
     assert not np.allclose(after["opt_state"]["mu"]["nn"]["w0"], saved["opt_state"]["mu"]["nn"]["w0"])
-    # a JAX checkpoint's optax state does not resume in the port
-    with pytest.raises(ValueError, match="not ported"):
-        tloop.train_model(cfg, ttr, tva, None, None, max_epochs=1, resume_from=CKPT, device="cpu")
+    # a state that is neither the port's tree nor the JAX train_model's raises
+    opt = tloop.make_optimizer(1e-3, 1, 1).bind(tres.params)
+    with pytest.raises(ValueError, match="not a JAX train_model optimizer state"):
+        opt.load_state_tree(({"freeze": ((),)},))
 
 
 def test_save_checkpoint_spec_matches_jax(tmp_path):
