@@ -86,7 +86,7 @@ the last line:
                 update's loss and gradient norm against JAX CPU constants to
                 1e-4, solver_success 1; (c) the 8192-window cohort through
                 batched_forward in scan, while, sync (global span), dense and
-                dop853 while: median host ms of 3 (dop853: 2), accepted /
+                dop853 while: host ms of one run each, accepted /
                 rejected steps, success and host syncs each; while equal to
                 scan to 1e-5, sync within 30 x rtol_eff of a dop853 f64 run
                 (rtol 1e-10) on the first 64 windows (the other modes' distance
@@ -101,7 +101,7 @@ the last line:
                 adjoint: ODE parameters to the JAX suite's rtol 1e-3 / atol
                 1e-8, MLP leaves to _rel_err BACKSOLVE_NN_RTOL (3 x the largest
                 of backsolve_subsets.py's readings); (e) one scan-mode train
-                step at the cohort shape, timed after one untimed
+                step at the cohort shape, timed on its first call
   4e. ensemble - the identified deep ensemble and the 4GI generator (plain
                 PyTorch; they launch none of the fused kernels, every count is
                 read 0 after them): (a) simulate_cohort (dopri5 'while', f32)
@@ -116,7 +116,7 @@ the last line:
                 identification steps at 36 points, and the host ms per
                 identification step; (e) one ensemble train step of the
                 recipe from the checkpoint's params, the members' losses and
-                gradient norms against JAX CPU constants to 1e-4, 2 more timed;
+                gradient norms against JAX CPU constants to 1e-4, 1 more timed;
                 (f) the launches of one forward at K=1 and K=8 (profiler), equal
                 within 5%, with the device's busy share
   4f. bayes   - Bayesian inference (bayes_phase). NUTS on
@@ -136,7 +136,7 @@ the last line:
                 means and covariances within the JAX suite's atol 0.12 /
                 0.35, divergences below 1%; (e) the phase's main path, every
                 count from 0: run_nuts(engine='fused') 1024 chains, 12 warmup
-                transitions (the mass adapts) and 8 draws at depth 4: draws
+                transitions (the mass adapts) and 4 draws at depth 4: draws
                 finite, mean accept statistic above 0.2, forward launches =
                 adjoint launches = leapfrogs + initial gradients; R-hat,
                 ESS, divergences, ms per fused leapfrog, host bookkeeping
@@ -157,8 +157,8 @@ the last line:
                 per interval, while) against the JAX CPU metrics; (c) one
                 scan-mode radau train step (16 windows x 13 points) against
                 JAX CPU loss and gradient norm; (d) the 8192 cohort through
-                radau / bdf while and radau / bdf dense, timed and
-                profiled (bdf2 cut for time); (e) online_adaptation_eval of
+                radau while and radau / bdf dense, timed and profiled (bdf2
+                and bdf while cut for time); (e) online_adaptation_eval of
                 checkpoints/online_population (use_pallas) on the committed
                 stream cohort against JAX CPU RMSEs, its fused launches
                 exactly sum(steps + 1) forward and sum(steps) adjoint, the
@@ -167,13 +167,22 @@ the last line:
                 fused launch); (f) train_model resumed from a JAX
                 checkpoint's optax state, the first update's loss and the
                 update's norm against JAX's. Limits in its docstring
+  4h. clinical - (clinical_phase) the MIMIC records and mimic_hybrid's
+                evaluation through the forward kernel (and the kernel against
+                its plain version at that shape), the dysglycemic ICU cohort
+                generated on the card, the protocol study on the mech-routed
+                K=8 ensemble (closed loop, optimiser, calibration) and a fused
+                closed loop, the robustness sweeps, the fig2 Sobol sweep and a
+                profiled forward, each against JAX CPU constants. Limits in its
+                docstring
   5. timing   - CUDA events, median of 20: forward and backward kernels at
                 the cohort shape, one train step (fwd kernel + bwd kernel +
                 loss + Adam) at the cohort shape and at bench.py's train
-                shape (B=8192, T=61, H=64, no context); plain versions once;
-                'recompute', 'chained' and the six probes with the
-                decomposition of the adjoint they give; the bf16 forward and
-                hand adjoint; identify_context per step at the test split's
+                shape (B=8192, T=61, H=64, no context); the plain forward
+                median of 3, the plain adjoints once; median of 10 (cut from
+                20 when phase 4h joined): 'recompute', 'chained' and the six
+                probes with the decomposition of the adjoint they give, the
+                bf16 forward and hand adjoint; identify_context per step at the test split's
                 and the cohort's size; then one cohort train step under
                 torch.profiler: device time per kernel and the device's busy
                 share of the step
@@ -270,13 +279,14 @@ REF_ADAPTIVE_METRICS = {
     "checkpoint_val_loss": 0.5244815349578857,
 }
 REF_ADAPTIVE_TRAIN_LOSS, REF_ADAPTIVE_GRAD_NORM = 1.1237022876739502, 5.447945594787598
-# timed runs per adaptive mode (median), 2 for dop853, and timed scan train
+# timed runs per adaptive mode (median), for dop853, and timed scan train
 # steps after one untimed: cut from 5 / 3 / 3 when phase 4e joined, so that
 # the whole script stays well inside 20 minutes on a slow host (871.5 s with
 # the old depths on an H100 machine whose host ran the scan forward 2.1x
-# slower than another's)
-ADAPTIVE_REPS = 3
-ADAPTIVE_DOP853_REPS = 2
+# slower than another's), and from 3 / 2 / 1 to 1 / 1 / 1, the step without
+# its untimed warm-up, when phase 4h joined (about 60 s)
+ADAPTIVE_REPS = 1
+ADAPTIVE_DOP853_REPS = 1
 ADAPTIVE_STEP_REPS = 1
 REF_SAMPLES = 64       # windows of the cohort held against a tight f64 run
 # backsolve vs discrete adjoint on the cohort's first 256 windows: the ODE
@@ -352,8 +362,9 @@ NUTS_CHAINS = 1024
 # engine's plain rk4 solve is launch-bound, about 11 s per gradient on the
 # card)
 NUTS_CMP_CHAINS, NUTS_CMP_DEPTH, NUTS_CMP_RTOL = 64, 1, 1e-5
-# (e) run_nuts(engine='fused'): warmup (> 10, so the mass adapts), draws, depth
-NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 12, 8, 4
+# (e) run_nuts(engine='fused'): warmup (> 10, so the mass adapts), draws (cut
+# from 8 when phase 4h joined), depth
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 12, 4, 4
 # (d) nuts_sample on a correlated 7-d Gaussian: the JAX suite's limits
 # (test_nuts_correlated_gaussian: means atol 0.12, covariances atol 0.35)
 GAUSS_DIM, GAUSS_WARMUP, GAUSS_SAMPLES, GAUSS_DEPTH = 7, 40, 30, 5
@@ -472,7 +483,8 @@ REF_RADAU_TRAIN_LOSS, REF_RADAU_GRAD_NORM = 48.16234588623047, 27.79267120361328
 # (d) the cohort through the implicit solvers: windows whose output is not
 # finite, at most, in each run. bdf in f32 exhausts its budget on nearly every
 # window and diverges on a few: 2 of the 8192 in the JAX package on the CPU,
-# 3 in the port on an H100 (bdf while; 0 in every other run)
+# 3 in the port on an H100 (bdf while, since cut from the list; 0 in
+# every other run)
 IMPLICIT_NONFINITE = 8
 # (e) online adaptation: checkpoints/online_population (H=128, 4 layers, rk4
 # with 4 substeps, 12 context points into 16 features, use_pallas) on the
@@ -509,9 +521,10 @@ REF_ONLINE_RMSE = {0: {6.0: 1.1485879633611917, 12.0: 1.2901663965571775, 24.0: 
 # shrinkage the JAX package deploys
 REF_GUARD_ALPHA = 0.5
 # ensemble_online_adaptation_eval on checkpoints/online_population_ens (K=8)
-# for subject 0 at 24 h with ENSEMBLE_ONLINE_STEPS steps
-ENSEMBLE_ONLINE_STEPS = 2
-REF_ENSEMBLE_ONLINE_RMSE = 1.597014520290081
+# for subject 0 at 24 h with ENSEMBLE_ONLINE_STEPS steps (cut from 2 when
+# phase 4h joined: about 30 s of eager K=8 steps at 289 points)
+ENSEMBLE_ONLINE_STEPS = 1
+REF_ENSEMBLE_ONLINE_RMSE = 1.5668855424675243
 # (f) train_model(resume_from=the accuracy checkpoint's final model, its optax
 # state) for one epoch, the schedule stretched to RESUME_EPOCHS (its learning
 # rate is then half the peak): the first update's loss
@@ -1196,10 +1209,10 @@ def adaptive_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
                        loss_weights=torch.as_tensor(ds.loss_weights, device=device))
     step = train_step_fn(state["params"], train_batch, config, cfg["training"]["lambda2"],
                          device)
-    step_ms = time_ms(step, 1, ADAPTIVE_STEP_REPS)
+    step_ms = time_ms(step, 0, ADAPTIVE_STEP_REPS)
     print(f"adaptive (e) ({smi}): dopri5 scan train step at B={n} T={ts.shape[1]} "
-          f"H={config.nn_hidden}: {step_ms:.1f} ms (median of {ADAPTIVE_STEP_REPS} after one "
-          f"untimed)")
+          f"H={config.nn_hidden}: {step_ms:.1f} ms (median of {ADAPTIVE_STEP_REPS}, the first "
+          f"call: an eager step of about 30 s has no set-up worth a warm-up)")
     out["train_step_ms"] = step_ms
     return out
 
@@ -1408,7 +1421,7 @@ def ensemble_phase(device, smi):
     rel_gn = float(np.abs(gnorms - REF_ENSEMBLE_STEP_GRAD_NORM).max()
                    / np.abs(REF_ENSEMBLE_STEP_GRAD_NORM).max())
     step_times = []
-    for _ in range(2):
+    for _ in range(1):  # cut from 2 when phase 4h joined
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, m2 = step(st, batch, gens)
@@ -1417,8 +1430,7 @@ def ensemble_phase(device, smi):
     print(f"ensemble (e) ({smi}): train step at K=8 B={rc['batch_size']} T=61 H=128: member "
           f"losses {np.round(losses, 8).tolist()} (rel_err {rel_loss:.2e}), grad norms "
           f"{np.round(gnorms, 7).tolist()} (rel_err {rel_gn:.2e}; limit {REF_RTOL}); all "
-          f"updated {bool(met['update_ok'].all())}; next 2 steps {step_times[0]:.1f}, "
-          f"{step_times[1]:.1f} host ms")
+          f"updated {bool(met['update_ok'].all())}; the next step {step_times[0]:.1f} host ms")
     if rel_loss > REF_RTOL or rel_gn > REF_RTOL or not bool(met["update_ok"].all()):
         fail("the ensemble train step disagrees with the JAX reference")
     out["train_step"] = {"losses": losses.tolist(), "grad_norms": gnorms.tolist(),
@@ -1881,9 +1893,10 @@ def implicit_online_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
         batch of 16, cut to the first 13 points (12 intervals; the full 61
         would take about 5x as long), lambda1 0.5, lambda2 2.0, clip 5.0:
         loss and gradient norm against JAX CPU constants to 1e-4;
-    (d) the 8192-window cohort through batched_forward with radau and bdf
-        in while mode and in dense mode, once each (bdf2 while cut for time:
-        22.8 s in the first chip run, its budget exhausted everywhere): host
+    (d) the 8192-window cohort through batched_forward with radau in while
+        mode and radau and bdf in dense mode, once each (bdf2 while cut for
+        time: 22.8 s in the first chip run, its budget exhausted everywhere;
+        bdf while, 25.4 s, when phase 4h joined; (b) runs it): host
         ms, accepted / rejected steps, success, windows not finite, and one
         while-mode interval's launches and device busy share (profiler). No
         time limit (eager and launch-bound); at most IMPLICIT_NONFINITE = 8
@@ -1909,7 +1922,7 @@ def implicit_online_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
         deploys (its forward launches ONLINE_STEPS + 4 arms, its adjoint
         ONLINE_STEPS, checked too); ensemble_online_adaptation_eval on
         checkpoints/online_population_ens (K=8, plain PyTorch) for subject 0
-        at 24 h with 2 steps: the RMSE to 1e-4 and no fused launch; ms per
+        at 24 h with 1 step: the RMSE to 1e-4 and no fused launch; ms per
         adaptation step at B=1 printed;
     (f) train_model(resume_from=checkpoints/accuracy_benchmark/final_model,
         whose optax state the port converts) for one epoch: the first
@@ -1994,10 +2007,10 @@ def implicit_online_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
     batch, ctrl = cohort_inputs(ds, params, config, device, n)
     y0, ts = batch["initial_state"], batch["time_points"]
     cohort = {}
-    # bdf2 while (22.8 s on the card, budget exhausted on every window) was cut
-    # from the list to keep the script inside its time (phase 4a checks bdf2)
-    for solver, mode in (("radau", "while"), ("bdf", "while"), ("radau", "dense"),
-                         ("bdf", "dense")):
+    # bdf2 while (22.8 s on the card, budget exhausted on every window) and
+    # bdf while (25.4 s; phase 4h joined) were cut from the list to keep the
+    # script inside its time (phase 4a checks bdf2, (b) evaluates with bdf while)
+    for solver, mode in (("radau", "while"), ("radau", "dense"), ("bdf", "dense")):
         cfg_r = dataclasses.replace(config, solver=solver, mode=mode)
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -2170,6 +2183,517 @@ def implicit_online_phase(ds, train_ds, val_ds, test_ds, device, smi, n=COHORT):
                      "update_norm_rel_err": rel_u}
     out["seconds"] = time.perf_counter() - t_phase
     print(f"implicit and online: phase 4g in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the clinical cohorts, protocol optimisation and evaluation tools
+# ---------------------------------------------------------------------------
+
+MIMIC_CKPT = ROOT / "checkpoints" / "mimic_hybrid" / "best_model"
+MIMIC_RUN = dict(n_patients=100, grid_minutes=5.0, interpolate=True, seed=0)
+MIMIC_ROWS = 20325
+#: nansum of each column of data/mimic_glucose_insulin.parquet (the JAX
+#: package's file: MIMICDownloader.run with MIMIC_RUN)
+REF_MIMIC_SUMS = {'subject_id': 1001221.0,
+                  'time_minutes': 10470520.0,
+                  'glucose_mmol_L': 154253.430220458,
+                  'insulin_pmol_L': 1452771.6246762737,
+                  'glucagon_pmol_L': 1615990.0260024432,
+                  'glp1_pmol_L': 393685.0519601761}
+#: JAX CPU evaluate_checkpoint of checkpoints/mimic_hybrid on the seed-42 test
+#: split of that file (sequence_length 61, stride 12; its XLA rk4 path)
+REF_MIMIC_METRICS = {'rmse': 3.1662145005939992,
+                     'mae': 1.4904130725149634,
+                     'r2': -13.717757685192035,
+                     'rmse_glucose': 1.6680479044836982,
+                     'mae_glucose': 1.4344821334733617,
+                     'rmse_insulin': 1.6682798779875794,
+                     'mae_insulin': 1.2689102079056045,
+                     'rmse_glucagon': 1.9101542912257805,
+                     'mae_glucagon': 1.3613895795508715,
+                     'rmse_glp1': 7.136821739042879,
+                     'mae_glp1': 4.84842106844804,
+                     'rmse_ge': 0.03081225646902568,
+                     'mae_ge': 0.026738752151864376,
+                     'rmse_ffa': 0.008981835421539576,
+                     'mae_ffa': 0.0025366935600368884,
+                     'nrmse': 4.703267574310303,
+                     'nrmse_glucose': 1.582234502375137,
+                     'nrmse_insulin': 1.6723644936865005,
+                     'nrmse_glucagon': 1.905862548954625,
+                     'nrmse_glp1': 7.244598928074413,
+                     'nrmse_ge': 30812256469.02568,
+                     'nrmse_ffa': 8981835421.539576,
+                     'checkpoint_epoch': 117.0,
+                     'checkpoint_val_loss': 0.14663496799767017}
+EVAL_BATCH = 32
+TESTDATA = ROOT / "hybrid_ode_torch" / "testdata"
+#: the JAX package's dysglycemic ICU cohorts, `benchmarks/dose_optimize.py`'s
+#: evaluation size: the design cohort under the default protocol (seed 1313)
+#: and a varied-protocol cohort of the same size (seed 0) for the calibration
+ICU_DESIGN_CSV = TESTDATA / "icu_dysglycemic_s1313.csv"
+ICU_VARIED_CSV = TESTDATA / "icu_dysglycemic_varied_s0.csv"
+ICU_DESIGN = dict(n_patients=16, hours=30.0, seed=1313, protocol_gain=900.0,
+                  protocol_target=7.0, protocol_basal=0.0, protocol_max_rate=20000.0)
+ICU_VARIED = dict(n_patients=16, hours=30.0, seed=0, varied_protocol=True)
+#: column sums of the JAX design cohort (nansum: NaN between charting events)
+REF_ICU_SUMS = {'glucose_mmol_L': 5701.216356280476,
+                'glucose_true_mmol_L': 50066.107570171356,
+                'insulin_pmol_L': 110640.61243634808,
+                'insulin_true_pmol_L': 969289.1989173889,
+                'glucagon_pmol_L': 22047.021514187458,
+                'glucagon_true_pmol_L': 191749.13263130188,
+                'glp1_pmol_L': 4471815.030249537,
+                'glp1_true_pmol_L': 42151606.13238335,
+                'meal_indicator': 6503.864943068811}
+PROTOCOL_CKPT = ROOT / "checkpoints" / "icu_ensemble_mech_dysglycemic" / "ensemble_model"
+#: state mean and std of data/icu_cohort_dysglycemic.parquet's windows (61,
+#: stride 24), the training cohort's statistics the benchmark normalises with
+TRAIN_NORM = ([7.768052101135254, 173.396240234375, 36.16472625732422, 15396.625, 0.0, 1.0],
+              [2.1482486724853516, 77.35078430175781, 12.868720054626465, 9759.0078125, 9.999999974752427e-07, 9.999999974752427e-07])
+DESIGN_T, DESIGN_STRIDE, CALIB_T, CALIB_STRIDE = 73, 72, 61, 24
+PROTOCOL_DEFAULT = (900.0, 7.0, 0.0)
+MAX_RATE = 20000.0
+GAIN_BOUNDS, BASAL_BOUNDS = (0.0, 3600.0), (0.0, 15000.0)
+OPT_STEPS, OPT_LR = 3, 0.05
+CALIB_SCALES = (1.0, 2.0)
+#: JAX CPU references of (c): per-member mean glucose and rate of the closed
+#: loop at the default protocol, the optimiser's risk trace and protocol, the
+#: calibration's slopes; the mimic_hybrid closed loop (fused path)
+REF_LOOP = {'glucose': [8.101851150107711, 7.995447710360566, 8.352345572187476,
+                        8.113234438389949, 8.223090613949788, 8.159688370766705,
+                        8.115015113149603, 8.325275459109921],
+            'rates': [1078.7624699572723, 1006.8805196762085, 1231.6936683138213,
+                      1074.551836429288, 1155.8210588555783, 1122.1693169295788,
+                      1093.8857558509956, 1213.2864355951547]}
+REF_OPT = {'risk': [0.5207746028900146, 0.5183325409889221, 0.5167353749275208,
+                    0.5153195858001709],
+           'gain': 815.6385498046875,
+           'target': 7.142149448394775,
+           'basal': 13.187362670898438}
+REF_CALIB = {"scale": 1.0, "slopes": {"1.0": -4.5257, "2.0": -2.2664}}
+REF_MIMIC_LOOP = {'glucose': 6.987111875374024,
+                  'rates': 439.71756803095343,
+                  'insulin_total': 211064.43828201294}
+#: JAX CPU robustness_report of mimic_hybrid on the test split
+REF_ROBUSTNESS = {'missing_data': {'0.0': 4.08499407926282,
+                                   '0.1': 3.9426499719474317,
+                                   '0.3': 3.726778083018915,
+                                   '0.5': 3.4538264332174706},
+                  'conditioning_noise': {'1.0': 4.08499407926282, '2.0': 4.17208100714634}}
+#: fig2's Sobol sweep: checkpoints/online_population (H=128, 4 layers, 16
+#: context features: the accuracy checkpoint's widths). The accuracy
+#: checkpoint itself gives NaN indices in the JAX package (3 of its 9,216
+#: rows diverge; ROADMAP Queue C)
+SOBOL_CKPT = ROOT / "checkpoints" / "online_population" / "best_model"
+SOBOL_N, SOBOL_BATCH = 1024, 4096
+#: JAX CPU Sobol indices of fig2 on SOBOL_CKPT (f32)
+REF_SOBOL = {'S1': [[-5.375094133341918e-06, 0.0, -2.4654750632180367e-06],
+                    [0.00010706671309890226, 0.0, 0.002544320886954665],
+                    [-1.886514944260398e-09, 0.0, 1.8579278560082457e-07],
+                    [-1.1873951422103346e-07, 0.0, 1.4245889587982674e-06],
+                    [0.7190813422203064, 0.0, 0.7074639201164246],
+                    [0.272786408662796, 0.0, 0.2769133746623993],
+                    [2.887181290134322e-05, 0.0, 4.9726870201993734e-05]],
+             'ST': [[4.304092158236017e-07, 0.0, 1.1799519597843755e-05],
+                    [9.37818840611726e-05, 0.0, 0.0027425228618085384],
+                    [6.381832996088521e-12, 0.0, 1.5819054399734966e-10],
+                    [9.458891447877704e-09, 0.0, 1.1404461019992596e-06],
+                    [0.7257211804389954, 0.0, 0.7181011438369751],
+                    [0.27562233805656433, 0.0, 0.28109797835350037],
+                    [3.1399507861351594e-05, 0.0, 3.65962550858967e-05]]}
+SOBOL_ATOL = 3 * 3.1052264550801567e-06  # 3x JAX's own f32-to-f64 distance
+
+
+def _nansums(table):
+    return {k: float(np.nansum(np.asarray(v, np.float64))) for k, v in table.items()}
+
+
+def _rels(got, ref):
+    return {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in ref.items()}
+
+
+def mimic_splits(path):
+    """The seed-42 split of the MIMIC cohort at mimic_hybrid's own window."""
+    _, meta = load_checkpoint(str(MIMIC_CKPT))
+    d = meta["config"]["data"]
+    return split_dataset(create_data_arrays(str(path), d["sequence_length"], d["stride"]),
+                         seed=42)
+
+
+def design_inputs(norm, csv=ICU_DESIGN_CSV, T=DESIGN_T, stride=DESIGN_STRIDE):
+    """(dataset, batch, truth (N, T) mmol/L) of a cohort CSV's receding-horizon
+    windows, normalised with `norm` (the benchmark's cohort_batch)."""
+    from hybrid_ode_torch.data.dataset import read_columns
+
+    ds = create_data_arrays(str(csv), T, stride, norm_stats=norm)
+    _, col, keys = read_columns(str(csv))
+    g_true = np.asarray(col("glucose_true_mmol_L"), np.float64)
+    grid = {sid: g_true[keys == sid] for sid in np.unique(keys)}
+    idx = np.round(ds.time_points.astype(np.float64) * 12).astype(int)
+    truth = np.stack([grid[ds.subject_ids[w]][idx[w]] for w in range(len(ds))])
+    return ds, ds.batch(np.arange(len(ds))), truth
+
+
+def calib_inputs(norm):
+    """The calibration's inputs on the varied cohort: windows, each window's
+    assigned protocol (the generator's seed rule), observed glucose, mask,
+    window -> patient index and the (gain, target, basal) instruments."""
+    ds = create_data_arrays(str(ICU_VARIED_CSV), CALIB_T, CALIB_STRIDE, norm_stats=norm)
+    batch = ds.batch(np.arange(len(ds)))
+    n = ICU_VARIED["n_patients"]
+    prng = np.random.default_rng(ICU_VARIED["seed"] + 10_000)
+    gains = 900.0 * prng.uniform(0.25, 3.0, n)
+    targets = prng.uniform(5.0, 9.0, n)
+    basals = prng.uniform(0.0, 12000.0, n)
+    w2p = np.searchsorted(np.unique(ds.subject_ids), ds.subject_ids)
+    obs = (batch["observations"][..., 0] * norm[1][0] + norm[0][0]).astype(np.float32)
+    return dict(batch=batch, gain_w=gains[w2p].astype(np.float32),
+                target_w=targets[w2p].astype(np.float32),
+                basal_w=basals[w2p].astype(np.float32), observed_glucose=obs,
+                observed_mask=batch["mask"], subject_idx=w2p,
+                instruments=np.stack([gains, targets, basals], axis=1))
+
+
+def protocol_checkpoint(device):
+    """icu_ensemble_mech_dysglycemic pruned as the benchmark prunes it."""
+    from hybrid_ode_torch.parallel.ensemble import prune_members
+
+    state, meta = load_checkpoint(str(PROTOCOL_CKPT))
+    stacked = prune_members(params_from_numpy(state, device), meta["best_val"])
+    return stacked, config_from_dict(meta["config"])
+
+
+def protocol_run(stacked, config, norm, device, timed=None):
+    """(c)'s path: the closed loop at the default protocol, the anchored
+    optimisation (robust objective, OPT_STEPS Adam steps) and the
+    calibration; returns the readings. `timed` (a dict) collects host ms."""
+    from hybrid_ode_torch.models import protocol
+
+    timed = {} if timed is None else timed
+    _, batch, truth = design_inputs(norm)
+    g, t, b = PROTOCOL_DEFAULT
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        loop = protocol.ensemble_closed_loop(stacked, batch, config, g, t, norm, basal=b,
+                                             rate_cap=MAX_RATE)
+        sync()
+        timed["rollout_ms"] = (time.perf_counter() - t0) * 1e3
+        truth_t = torch.as_tensor(truth, dtype=torch.float32, device=device)
+        anchor = truth_t - loop["glucose"].mean(dim=0)
+
+    def rollout(gain, target, basal):
+        return protocol.ensemble_closed_loop(stacked, batch, config, gain, target, norm,
+                                             basal=basal, glucose_offset=anchor,
+                                             rate_cap=MAX_RATE)["glucose"]
+
+    with torch.no_grad():
+        fact = rollout(g, t, b)
+    sync()
+    t0 = time.perf_counter()
+    opt = protocol.optimize_protocol(
+        rollout, init_gain=g, init_target=t, init_basal=b, steps=OPT_STEPS, lr=OPT_LR,
+        gain_bounds=GAIN_BOUNDS, basal_bounds=BASAL_BOUNDS, device=device,
+        objective=lambda x: protocol.robust_delta_risk(x, fact, truth_t[None]))
+    sync()
+    timed["opt_step_ms"] = (time.perf_counter() - t0) * 1e3 / OPT_STEPS
+    ci = calib_inputs(norm)
+    sync()
+    t0 = time.perf_counter()
+    cal = protocol.calibrate_dose_response(
+        stacked, ci.pop("batch"), config, norm, reference_protocol=PROTOCOL_DEFAULT,
+        scales=CALIB_SCALES, rate_cap=MAX_RATE, **ci)
+    sync()
+    timed["calibration_s"] = time.perf_counter() - t0
+    return {
+        "loop": {"glucose": loop["glucose"].double().mean(dim=(1, 2)).tolist(),
+                 "rates": loop["rates"].double().mean(dim=(1, 2)).tolist()},
+        "opt": {"risk": opt["risk"], "gain": opt["gain"], "target": opt["target"],
+                "basal": opt["basal"]},
+        "calib": {"scale": cal["scale"],
+                  "slopes": {str(s): cal["slopes"][s]["slope"] for s in CALIB_SCALES}},
+        "finite": bool(torch.isfinite(loop["glucose"]).all()),
+    }
+
+
+def mimic_loop_run(params, config, meta, device):
+    """A use_pallas, exog_insulin='nn' closed loop: mimic_hybrid on the design
+    windows in its own coordinates, one fused forward per nurse check."""
+    from hybrid_ode_torch.models import protocol
+
+    norm = (np.asarray(meta["state_mean"], np.float64), np.asarray(meta["state_std"], np.float64))
+    _, batch, _ = design_inputs(norm)
+    with torch.no_grad():
+        out = protocol.closed_loop_rollout(params, batch, config, PROTOCOL_DEFAULT[0],
+                                           PROTOCOL_DEFAULT[1], norm)
+    return {"glucose": float(out["glucose"].double().mean()),
+            "rates": float(out["rates"].double().mean()),
+            "insulin_total": float(out["insulin_total"].double().sum())}
+
+
+def _flat(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        elif isinstance(v, (list, tuple)):
+            out.update({f"{prefix}{k}[{i}]": float(x) for i, x in enumerate(v)})
+        else:
+            out[f"{prefix}{k}"] = float(v)
+    return out
+
+
+def _hold(label, got, ref, limit):
+    """Every number of `got` against `ref` (nested dicts / lists) by relative
+    error; prints the worst and fails above `limit`."""
+    g, r = _flat(got), _flat(ref)
+    if sorted(g) != sorted(r):
+        fail(f"{label}: keys {sorted(set(g) ^ set(r))} differ from the reference's")
+    rels = {k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in r.items()}
+    worst = max(rels, key=rels.get)
+    print(f"{label}: {len(rels)} values against JAX-CPU, worst {worst} {g[worst]!r} vs "
+          f"{r[worst]!r} rel_err={rels[worst]:.2e} (limit {limit})")
+    if not rels[worst] <= limit:
+        fail(f"{label}: {worst} disagrees with the JAX reference")
+    return rels[worst]
+
+
+def clinical_phase(device, smi, work_dir):
+    """Phase 4h: the clinical cohorts, protocol optimisation and the
+    evaluation tools on `device`; cohort files go to `work_dir`. Returns the
+    report's entries (its fused launches by path under 'launches'). Fails on
+    any check.
+
+    (a) MIMICDownloader.run(100, 5.0, interpolate, seed 0) on the host, written
+        as CSV: its row count and per-column sums against the committed
+        Parquet file's; evaluate_checkpoint of checkpoints/mimic_hybrid
+        (use_pallas, H=128, 4 layers, rk4, 16 context features) on the
+        seed-42 test split at its own window (61, stride 12), every metric
+        against JAX CPU to 1e-4, the forward kernel launched ceil(N / 32)
+        times; the kernel against its plain version at that shape (B=32,
+        T=61) with phase 3's limits;
+    (b) generate_icu_cohort_dysglycemic at the benchmark's evaluation size
+        (16 patients, 30 h, seed 1313, protocol (900, 7, 0), max rate
+        20,000) on the card: each channel's and truth column's sum against
+        the JAX cohort's (COHORT_SUM_RTOL), timed;
+    (c) checkpoints/icu_ensemble_mech_dysglycemic (K=8 after prune_members,
+        H=128, exog_insulin='mech'; no fused kernel) on the JAX design
+        cohort's 6 h windows (T=73, stride 72) in the training cohort's
+        coordinates: ensemble_closed_loop at the default protocol (each
+        member's mean glucose and rate), optimize_protocol for OPT_STEPS
+        steps (gain box (0, 3600), init_basal, the anchored robust delta
+        objective: the risk trace and the protocol) and
+        calibrate_dose_response at scales (1, 2) with the (gain, target,
+        basal) instruments on the varied cohort: each against JAX CPU to
+        1e-4; ms per rollout and per optimiser step, and the launches and
+        device busy share of one chunk; then mimic_hybrid's closed loop
+        (use_pallas, exog 'nn'): one forward launch per nurse check, against
+        JAX CPU to 1e-4;
+    (d) robustness_report of mimic_hybrid on (a)'s test windows: every sweep
+        value against JAX CPU to 1e-4, 6 forward launches (4 missingness
+        rows + 2 noise rows, one batched forward each);
+    (e) sobol_sensitivity of make_fig2_simulator on SOBOL_CKPT (rk4, 6
+        substeps, no fused kernel) at n=1024:
+        9,216 rows in chunks of 4,096; S1 and ST against JAX CPU within
+        SOBOL_ATOL; timed;
+    (f) profiling.trace around one mimic_hybrid forward writes a trace."""
+    from hybrid_ode_torch.data import mimic
+    from hybrid_ode_torch.evals import robustness
+    from hybrid_ode_torch.plots.figures import make_fig2_simulator
+    from hybrid_ode_torch.plots.sobol import sobol_sensitivity
+    from hybrid_ode_torch.utils import profiling
+
+    def launches():
+        return (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches,
+                fused_rk4.fused_rk4_bwd_vjp_launches)
+
+    def reset():
+        fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+        fused_rk4.fused_rk4_bwd_vjp_launches = 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    out, paths = {}, {}
+    work_dir = Path(work_dir)
+    work_dir.mkdir(parents=True, exist_ok=True)
+
+    # (a) the MIMIC records, and mimic_hybrid's evaluation through the kernel
+    t0 = time.perf_counter()
+    mimic_csv = mimic.MIMICDownloader(output_dir=str(work_dir)).run(
+        **MIMIC_RUN, filename="mimic_glucose_insulin.csv")
+    from hybrid_ode_torch.data.dataset import read_columns
+
+    header, col, keys = read_columns(str(mimic_csv))
+    sums = {c: float(np.nansum(np.asarray(col(c), np.float64))) for c in REF_MIMIC_SUMS}
+    rels = _rels(sums, REF_MIMIC_SUMS)
+    worst = max(rels, key=rels.get)
+    print(f"clinical (a): MIMICDownloader.run -> {mimic_csv.name}: {len(keys)} rows (committed "
+          f"file {MIMIC_ROWS}) in {time.perf_counter() - t0:.2f} s; column sums against the "
+          f"committed file's, worst {worst} rel_err={rels[worst]:.2e} (limit 1e-12)")
+    if len(keys) != MIMIC_ROWS or rels[worst] > 1e-12:
+        fail("the MIMIC records differ from the committed file")
+    _, _, test_ds = mimic_splits(mimic_csv)
+    state, meta = load_checkpoint(str(MIMIC_CKPT))
+    mparams = params_from_numpy(state["params"], device)
+    mcfg = config_from_dict(meta["config"])
+    reset()
+    sync()
+    t0 = time.perf_counter()
+    metrics = evaluate_checkpoint(str(MIMIC_CKPT), test_ds, device=device)
+    sync()
+    eval_s = time.perf_counter() - t0
+    paths["evaluate"] = launches()
+    want = (-(-len(test_ds) // EVAL_BATCH), 0, 0)
+    _hold(f"clinical (a) ({smi}): evaluate_checkpoint mimic_hybrid, {len(test_ds)} test windows "
+          f"in {eval_s:.2f} s", {k: metrics[k] for k in REF_MIMIC_METRICS}, REF_MIMIC_METRICS,
+          REF_RTOL)
+    print(f"clinical (a): fused launches {paths['evaluate']} (formula {want})")
+    if paths["evaluate"] != want:
+        fail("mimic_hybrid's evaluation launched the fused kernels otherwise")
+    with torch.no_grad():
+        b = batch_to_tensors(test_ds.batch(np.arange(EVAL_BATCH)), device)
+        sig = with_context(mparams, b, Controls(ts=b["time_points"],
+                                                signals=b["external_inputs"]), mcfg).signals
+        packed = fused_rk4.pack(b["initial_state"], b["time_points"], sig["meal"], sig["tVNS"],
+                                mparams["ode"], mparams["nn"], mcfg.nn_layers, sig["context"])
+        kern = fused_rk4.fused_rk4_fwd(*packed, mcfg.substeps)
+        sync()
+        out["max_abs_err"] = compare(
+            kern, fused_rk4._fwd_plain(*packed, mcfg.substeps),
+            f"MIMIC evaluation B={EVAL_BATCH} T={b['time_points'].shape[1]} "
+            f"context={sig['context'].shape[1]}")
+    out["evaluate"] = {"metrics": {k: metrics[k] for k in REF_MIMIC_METRICS},
+                       "seconds": eval_s, "n_test": len(test_ds)}
+
+    # (b) the dysglycemic ICU cohort on the card
+    sync()
+    t0 = time.perf_counter()
+    cohort = mimic.generate_icu_cohort_dysglycemic(str(work_dir / "icu_design.csv"),
+                                                   device=device, **ICU_DESIGN)
+    sync()
+    gen_s = time.perf_counter() - t0
+    sums = _nansums({k: cohort[k] for k in REF_ICU_SUMS})
+    rels = _rels(sums, REF_ICU_SUMS)
+    worst = max(rels, key=rels.get)
+    print(f"clinical (b) ({smi}): generate_icu_cohort_dysglycemic 16 patients x 30 h in "
+          f"{gen_s:.2f} s; column sums against JAX-CPU: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" (limit {COHORT_SUM_RTOL})")
+    if rels[worst] > COHORT_SUM_RTOL:
+        fail(f"the ICU cohort's {worst} sum disagrees with the JAX reference")
+    out["icu_cohort"] = {"seconds": gen_s, "rel_err": rels}
+
+    # (c) the protocol study on the mech-routed ensemble (no fused kernel)
+    norm = (np.asarray(TRAIN_NORM[0], np.float64), np.asarray(TRAIN_NORM[1], np.float64))
+    stacked, pcfg = protocol_checkpoint(device)
+    K = next(iter(stacked["ode"].values())).shape[0]
+    reset()
+    timed = {}
+    t0 = time.perf_counter()
+    got = protocol_run(stacked, pcfg, norm, device, timed)
+    prot_s = time.perf_counter() - t0
+    paths["protocol"] = launches()
+    worst_c = max(_hold(f"clinical (c) ({smi}): ensemble_closed_loop K={K}, 80 windows x "
+                        f"{DESIGN_T} points", got["loop"], REF_LOOP, REF_RTOL),
+                  _hold(f"clinical (c): optimize_protocol {OPT_STEPS} steps", got["opt"],
+                        REF_OPT, REF_RTOL),
+                  _hold(f"clinical (c): calibrate_dose_response scales {CALIB_SCALES}",
+                        got["calib"], REF_CALIB, REF_RTOL))
+    print(f"clinical (c) ({smi}): {timed['rollout_ms']:.1f} ms per closed-loop rollout "
+          f"(K={K}, 6 nurse checks), {timed['opt_step_ms']:.1f} ms per optimiser step, "
+          f"calibration {timed['calibration_s']:.2f} s, the study {prot_s:.1f} s; fused "
+          f"launches {paths['protocol']} (the mech routing runs none)")
+    if any(paths["protocol"]) or not got["finite"]:
+        fail("the protocol study launched a fused kernel or is not finite")
+    _, pbatch, _ = design_inputs(norm)
+    from hybrid_ode_torch.parallel.ensemble import _member_codes, _member_view, _members
+
+    with torch.no_grad():
+        pb = batch_to_tensors(pbatch, device)
+        ts12 = _members(pb["time_points"][:, :13], K)
+        chunk_ctrl = Controls(ts=ts12, signals={
+            "meal": _members(pb["external_inputs"]["meal"][:, :13], K),
+            "tVNS": torch.zeros_like(ts12),
+            "context": _member_codes(stacked["enc"], pb["observations"], pb["time_points"],
+                                     pcfg.context_points, pcfg.activation)})
+        chunk_ms, kernels = profile_ms(lambda: batched_forward(
+            _member_view(stacked, 1), _members(pb["initial_state"], K), ts12, chunk_ctrl, pcfg))
+    busy = sum(ms for ms, _ in kernels.values())
+    n_launch = sum(n for _, n in kernels.values())
+    print(f"clinical (c) ({smi}): one nurse-check chunk (K={K}, 12 intervals, 4 substeps): "
+          f"wall {chunk_ms:.1f} ms, {n_launch} launches, device busy {busy:.1f} ms "
+          f"({100 * busy / chunk_ms:.1f}%)")
+    reset()
+    mloop = mimic_loop_run(mparams, mcfg, meta, device)
+    paths["closed_loop_fused"] = launches()
+    _hold(f"clinical (c) ({smi}): closed_loop_rollout mimic_hybrid (use_pallas)", mloop,
+          REF_MIMIC_LOOP, REF_RTOL)
+    print(f"clinical (c): its fused launches {paths['closed_loop_fused']} (formula (6, 0, 0): "
+          "one per nurse check)")
+    if paths["closed_loop_fused"] != (6, 0, 0):
+        fail("the fused closed loop launched otherwise")
+    out["protocol"] = {**got, **timed, "seconds": prot_s, "worst_rel": worst_c,
+                       "chunk": {"wall_ms": chunk_ms, "launches": n_launch, "busy_ms": busy},
+                       "mimic_loop": mloop}
+
+    # (d) robustness sweeps through the fused forward
+    reset()
+    t0 = time.perf_counter()
+    rep = robustness.robustness_report(mparams, test_ds, mcfg)
+    sync()
+    rob_s = time.perf_counter() - t0
+    paths["robustness"] = launches()
+    rep_s = {k: {str(x): v for x, v in d.items()} for k, d in rep.items()}
+    _hold(f"clinical (d) ({smi}): robustness_report mimic_hybrid in {rob_s:.2f} s", rep_s,
+          REF_ROBUSTNESS, REF_RTOL)
+    print(f"clinical (d): fused launches {paths['robustness']} (formula (6, 0, 0))")
+    if paths["robustness"] != (6, 0, 0):
+        fail("the robustness sweeps launched the fused kernels otherwise")
+    out["robustness"] = {"report": rep_s, "seconds": rob_s}
+
+    # (e) the fig2 Sobol sweep (plain rk4)
+    sstate, smeta = load_checkpoint(str(SOBOL_CKPT))
+    sim = make_fig2_simulator(params_from_numpy(sstate["params"], device),
+                              config_from_dict(smeta["config"]))
+    reset()
+    sync()
+    t0 = time.perf_counter()
+    res = sobol_sensitivity(sim, n=SOBOL_N, batch_size=SOBOL_BATCH, device=device)
+    sync()
+    sobol_s = time.perf_counter() - t0
+    err = max(float(np.abs(res[k] - np.asarray(REF_SOBOL[k])).max()) for k in ("S1", "ST"))
+    print(f"clinical (e) ({smi}): sobol_sensitivity fig2, {SOBOL_N * 9} rows in chunks of "
+          f"{SOBOL_BATCH}, {sobol_s:.2f} s; S1 / ST against JAX-CPU max abs {err:.2e} (limit "
+          f"{SOBOL_ATOL}); fused launches {launches()} (none)")
+    if not err <= SOBOL_ATOL or any(launches()):
+        fail("the Sobol indices disagree with the JAX reference")
+    out["sobol"] = {"S1": res["S1"].tolist(), "ST": res["ST"].tolist(), "max_abs_err": err,
+                    "seconds": sobol_s}
+
+    # (f) a profiled forward writes its trace
+    reset()
+    trace_dir = work_dir / "trace"
+    with torch.no_grad(), profiling.trace(str(trace_dir)):
+        batched_forward(mparams, b["initial_state"], b["time_points"],
+                        Controls(ts=b["time_points"], signals=sig), mcfg)
+    paths["trace"] = launches()
+    size = (trace_dir / "trace.json").stat().st_size
+    print(f"clinical (f): profiling.trace of one mimic_hybrid forward -> trace.json "
+          f"({size} bytes); fused launches {paths['trace']} (formula (1, 0, 0))")
+    if size == 0 or paths["trace"] != (1, 0, 0):
+        fail("profiling.trace wrote no trace or the forward launched otherwise")
+    out["launches"] = paths
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"clinical: phase 4h in {out['seconds']:.1f} s")
     return out
 
 
@@ -2561,13 +3085,20 @@ def main():
     online_launches = report["implicit_online"]["launches"]
     online_b1_err = report["implicit_online"]["online"]["max_abs_err_b1"]
 
+    # 4h. the clinical cohorts, protocol optimisation and the evaluation tools
+    # (the forward kernel through evaluation, a closed loop, the robustness
+    # sweeps and a profiled forward; its launches counted from 0 per path)
+    with tempfile.TemporaryDirectory() as work:
+        report["clinical"] = clinical_phase(device, smi, work)
+    clinical_fwd = sum(v[0] for v in report["clinical"]["launches"].values())
+
     # 5. timing
     with torch.no_grad():
         traj_full, gbar_full = bwd_inputs(packed, T, SUBSTEPS)
         ms = time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS), 3, 20)
         bwd_ms = time_ms(lambda: fused_rk4.fused_rk4_bwd(traj_full, gbar_full, *packed[1:],
                                                          SUBSTEPS), 2, 20)
-        plain_ms = time_ms(lambda: fused_rk4._fwd_plain(*packed, SUBSTEPS), 1, 10)
+        plain_ms = time_ms(lambda: fused_rk4._fwd_plain(*packed, SUBSTEPS), 1, 3)
     nn = params["nn"]
     steps = COHORT * (T - 1) * SUBSTEPS
     fwd_ops, bwd_ops = kernel_ops(nn, config.nn_layers, config.nn_hidden, COHORT, T, SUBSTEPS, C)
@@ -2593,12 +3124,12 @@ def main():
     with torch.no_grad():
         for impl in fused_rk4.VJP_IMPLS:
             vjp_ms[impl] = time_ms(lambda: fused_rk4.fused_rk4_bwd_vjp(
-                traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "f32", impl), 2, 20)
+                traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "f32", impl), 2, 10)
         bf16_ms = {
             "fwd": time_ms(lambda: fused_rk4.fused_rk4_fwd(*packed, SUBSTEPS, (), "mul", "bf16"),
-                           2, 20),
+                           2, 10),
             "bwd": time_ms(lambda: fused_rk4.fused_rk4_bwd(
-                traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "bf16"), 2, 20)}
+                traj_full, gbar_full, *packed[1:], SUBSTEPS, (), "mul", "bf16"), 2, 10)}
     # Both schedules compute the hand adjoint's function, so they share its
     # operation count; 'recompute' returns the parameter cotangents as one (32,)
     # row. Its second forward pass per interval is the schedule's choice, not
@@ -2680,8 +3211,9 @@ def main():
          "source": "hybrid_ode_torch/csrc/fused_rk4_fwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:253",
          "launches": (launches + train_launches[0] + id_launches[0] + bayes_launches[0]
-                      + online_launches[0]),
-         "max_abs_err": max(*max_abs.values(), online_b1_err["fwd"]),
+                      + online_launches[0] + clinical_fwd),
+         "max_abs_err": max(*max_abs.values(), online_b1_err["fwd"],
+                            report["clinical"]["max_abs_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None, "ms_bf16": bf16_ms["fwd"]},
         {"name": "fused_rk4_bwd", "route": "cuda",

@@ -1,13 +1,16 @@
 """Windowed glucose datasets as stacked numpy arrays (no pandas).
 
 Port of `hybrid_ode_tpu/data/dataset.py`, with the semantics of its pandas
-path (`create_data_arrays`) on a CSV read by the `csv` module:
+path (`create_data_arrays`) on a CSV read by the `csv` module or a Parquet
+file read by `pyarrow` (imported when a Parquet file is read, and only then:
+the card's machine has no pyarrow, so cohorts go there as CSV):
   * state columns [glucose, insulin, glucagon, glp1] + placeholder ge=0.0,
     ffa=1.0 when absent; tvns=0.0 when absent; meal from meal_indicator
   * time from time_minutes/60, else time_hours, else a 5-min grid over rows
   * sliding windows per subject, subjects in SORTED key order (as
     `DataFrame.groupby` walks them), rows in file order within a subject
-  * z-score over all observed points; NaN states become mask=0
+  * z-score over all observed points; NaN states (and Parquet nulls) become
+    mask=0
 A CSV takes the native C++ route (`data/native_loader.py`, the JAX package's
 default for CSVs) when it is grouped by subject and has the expected
 columns; the route taken is logged and kept in `last_route`. Arrays go to
@@ -19,7 +22,8 @@ from __future__ import annotations
 import csv
 import dataclasses
 import logging
-from typing import Dict, Iterator, List, Tuple
+from pathlib import Path
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,7 +32,7 @@ STATE_COLS = ["glucose_mmol_L", "insulin_pmol_L", "glucagon_pmol_L", "glp1_pmol_
 
 logger = logging.getLogger("hybrid_ode_torch.data")
 
-#: the route the last `create_data_arrays` call took: 'native' or 'csv'
+#: the route the last `create_data_arrays` call took: 'native', 'csv' or 'parquet'
 last_route = None
 
 
@@ -133,6 +137,61 @@ def _subject_keys(raw: List[str]) -> np.ndarray:
         return np.array(raw, dtype=object)
 
 
+def read_parquet_columns(path: str) -> Dict[str, np.ndarray]:
+    """A Parquet file's columns as numpy arrays of their stored types (nulls
+    of a float or int column read as NaN); pyarrow is imported here, and a
+    missing pyarrow raises naming it."""
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs pyarrow, which is not installed; "
+                          "write the cohort as CSV instead") from e
+    table = pq.read_table(path)
+    return {name: table.column(name).to_numpy() for name in table.column_names}
+
+
+def read_columns(path: str):
+    """(column names, col, subject keys) of a CSV or Parquet file: col(name)
+    gives a column as numpy, Parquet columns in their stored type and CSV
+    cells as f64 (through `_float`); subject keys typed as pandas has them."""
+    path = str(path)
+    if path.endswith(".parquet"):
+        cols = read_parquet_columns(path)
+        return list(cols), cols.__getitem__, cols["subject_id"]
+    if path.endswith(".csv"):
+        header, raw = _read_csv(path)
+        return (header, lambda name: np.array([_float(v) for v in raw[name]], dtype=np.float64),
+                _subject_keys(raw["subject_id"]))
+    raise ValueError(f"unsupported file format (the port reads CSV and Parquet): {path}")
+
+
+def write_table(table: Mapping[str, np.ndarray], path: Union[str, Path],
+                metadata: Optional[Mapping[str, str]] = None) -> Path:
+    """Write a column table ({column: (rows,) numpy}) by `path`'s suffix:
+    `.parquet` through pyarrow (imported here; `metadata` as the schema's
+    metadata; a missing pyarrow raises naming it), anything else as CSV
+    through the `csv` module, floats as Python floats (their shortest
+    round-trip decimals carry f32 and f64 values exactly; NaN as 'nan')."""
+    path = Path(path)
+    if path.suffix == ".parquet":
+        try:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+        except ImportError as e:
+            raise ImportError(f"writing {path} needs pyarrow, which is not installed; "
+                              "write the table as CSV instead") from e
+        arrow = pa.table({k: np.asarray(v) for k, v in table.items()})
+        arrow = arrow.replace_schema_metadata(
+            {k.encode(): str(v).encode() for k, v in (metadata or {}).items()})
+        pq.write_table(arrow, path)
+        return path
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(list(table))
+        w.writerows(zip(*(np.asarray(v).tolist() for v in table.values())))
+    return path
+
+
 def create_data_arrays(
     data_path: str,
     sequence_length: int = 61,
@@ -143,7 +202,7 @@ def create_data_arrays(
     norm_stats=None,
     use_native: bool = True,
 ) -> GlucoseDataset:
-    """Load a CSV and build the window arrays.
+    """Load a CSV or Parquet file and build the window arrays.
 
     With `use_native`, no `per_channel_mask` and no `norm_stats` (the JAX
     package's conditions) the native C++ engine parses the file and builds
@@ -155,14 +214,16 @@ def create_data_arrays(
     for bit; where a cell holds more digits, an observation can differ from
     the csv route's in its last f32 bit.
 
+    A Parquet file is read through pyarrow (`read_parquet_columns`), as the
+    JAX package reads it through pandas: columns cast to f64, nulls as NaN.
+
     `norm_stats=(mean, std)` normalizes with external stats (e.g. the
     training cohort's) instead of this file's own."""
     global last_route
     if norm_stats is not None and not normalize:
         raise ValueError("norm_stats requires normalize=True")
-    if not str(data_path).endswith(".csv"):
-        raise ValueError(f"unsupported file format (the port reads CSV): {data_path}")
-    if use_native and not per_channel_mask and norm_stats is None:
+    is_csv = str(data_path).endswith(".csv")
+    if use_native and is_csv and not per_channel_mask and norm_stats is None:
         from hybrid_ode_torch.data.native_loader import NotGrouped
 
         try:
@@ -173,15 +234,14 @@ def create_data_arrays(
         except (KeyError, NotGrouped, OSError) as e:
             logger.info("create_data_arrays: csv route for %s (native route declined: %s)",
                         data_path, e)
-    else:
-        logger.info("create_data_arrays: csv route for %s", data_path)
-    last_route = "csv"
-    _, cols = _read_csv(data_path)
-    n_rows = len(cols["subject_id"])
+    header, col, keys = read_columns(data_path)
+    last_route = "csv" if is_csv else "parquet"
+    logger.info("create_data_arrays: %s route for %s", last_route, data_path)
+    n_rows = len(keys)
 
     def num(name, default=None):
-        if name in cols:
-            return np.array([_float(v) for v in cols[name]], dtype=np.float64)
+        if name in header:
+            return np.asarray(col(name), dtype=np.float64)
         if default is None:  # a state column the file lacks, as pandas reports it
             raise KeyError(f"missing column {name!r} in {data_path}")
         return np.full(n_rows, default, dtype=np.float64)
@@ -190,14 +250,14 @@ def create_data_arrays(
                          axis=-1)
     tvns_all = num("tvns", 0.0)
     meal_all = num("meal_indicator", 0.0)
-    if "time_minutes" in cols:
-        time_all = num("time_minutes") / 60.0
-    elif "time_hours" in cols:
+    # minutes -> hours in the column's own type, as pandas divides
+    if "time_minutes" in header:
+        time_all = np.asarray(col("time_minutes") / 60.0, dtype=np.float64)
+    elif "time_hours" in header:
         time_all = num("time_hours")
     else:
         time_all = np.arange(n_rows) * 5.0 / 60.0
 
-    keys = _subject_keys(cols["subject_id"])
     valid_rows = np.array([not (isinstance(k, float) and np.isnan(k)) for k in keys.tolist()])
     windows = []
     for sid in sorted(set(keys[valid_rows].tolist())):

@@ -23,12 +23,12 @@ shortest round-trip form, so the f32 numbers read back unchanged).
 
 from __future__ import annotations
 
-import csv
 from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from hybrid_ode_torch.data.dataset import write_table
 from hybrid_ode_torch.dynamics.fourgi import (
     fourgi_concentrations,
     fourgi_field,
@@ -171,12 +171,7 @@ def generate_4gi_dataset(
         **{col: conc[name].reshape(-1) for name, col in zip(CHANNEL_COLUMNS, true_cols)},
     }
     if path is not None:
-        # floats as Python floats: their shortest round-trip decimals carry
-        # the f32 values exactly
-        with open(path, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(list(table))
-            w.writerows(zip(*(v.tolist() for v in table.values())))
+        write_table(table, path)
     return table
 
 

@@ -28,12 +28,10 @@ import torch
 
 from hybrid_ode_torch.data.dataset import (
     GlucoseDataset,
-    _float,
-    _read_csv,
-    _subject_keys,
     batch_iterator,
     batch_to_tensors,
     pad_batch,
+    read_columns,
 )
 from hybrid_ode_torch.evals.metrics import (
     STATE_NAMES,
@@ -224,17 +222,18 @@ def evaluate_model(
 
 def glucose_truth_rmse(preds: np.ndarray, test_ds: GlucoseDataset, data_path: str) -> float:
     """Physical-units glucose RMSE against the generator's noiseless truth
-    column `glucose_true_mmol_L` of `data_path` (a CSV, read with the `csv`
-    module). preds: (N_windows, T, n) in the dataset's normalised
-    coordinates, in dataset order; each window's truth is taken at the
-    nearest file time of its subject."""
-    header, cols = _read_csv(data_path)
-    if "glucose_true_mmol_L" not in cols:
+    column `glucose_true_mmol_L` of `data_path` (a CSV read with the `csv`
+    module, or a Parquet file read through pyarrow). preds: (N_windows, T,
+    n) in the dataset's normalised coordinates, in dataset order; each
+    window's truth is taken at the nearest file time of its subject. The time
+    column is the first of time_hours / time_h / time, as in the JAX package
+    (a file with time_minutes alone has none, and raises there too)."""
+    header, col, keys = read_columns(data_path)
+    if "glucose_true_mmol_L" not in header:
         raise ValueError(f"{data_path} has no glucose_true_mmol_L column")
-    tcol = next(c for c in ("time_hours", "time_h", "time") if c in cols)
-    keys = _subject_keys(cols["subject_id"])
-    t_all = np.array([_float(v) for v in cols[tcol]])
-    g_all = np.array([_float(v) for v in cols["glucose_true_mmol_L"]])
+    tcol = next(c for c in ("time_hours", "time_h", "time") if c in header)
+    t_all = np.asarray(col(tcol), dtype=np.float64)
+    g_all = np.asarray(col("glucose_true_mmol_L"), dtype=np.float64)
     by_subj = {}
     for sid in set(keys.tolist()):
         rows = np.nonzero(keys == sid)[0]

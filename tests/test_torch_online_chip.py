@@ -3,7 +3,7 @@ JAX package on the CPU: checkpoints/online_population on the committed
 stream cohort rebased to its statistics (`chip_smoke.online_stream`),
 online_adaptation_eval at 6 / 12 / 24 h with 0 and 5 Adam steps, the arm
 adapt_subject_guarded deploys for subject 0 at 24 h, and the K=8 ensemble's
-RMSE for subject 0 at 24 h after 2 steps; the nudge readings that set the
+RMSE for subject 0 at 24 h after 1 step; the nudge readings that set the
 adapted RMSE's limits. The JAX values come from its XLA
 path (use_pallas off): its interpret-mode kernel at H=128 and 289 points
 would take hours here. About 2 and 4.5 minutes on the CPU, so marked slow.
