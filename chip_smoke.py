@@ -2,9 +2,14 @@
 
     python3 chip_smoke.py
 
+(`chip_smoke.py --parallel-rank <rank> <store> <work_dir> <device> <windows>`
+is one of phase 4i's two processes; the script starts them itself.)
+
 Phases, each printing a line of its own; any failure exits non-zero before
 the last line:
-  1. device   - require CUDA, print the card and its power limit, TF32 off
+  1. device   - require CUDA, print the card and its power limit, TF32 off;
+                `import hybrid_ode_torch as ht; ht.HybridConfig` and every
+                sub-package import without pandas, pyarrow, matplotlib, PyYAML
   2. build    - compile csrc/fused_rk4_fwd.cu, csrc/fused_rk4_bwd.cu and
                 csrc/fused_rk4_bwd_vjp.cu with nvcc (sm_90a), all at once;
                 ptxas registers / spills of each; the tile, grid, scratch and
@@ -174,6 +179,14 @@ the last line:
                 K=8 ensemble (closed loop, optimiser, calibration) and a fused
                 closed loop, the robustness sweeps, the fig2 Sobol sweep and a
                 profiled forward, each against JAX CPU constants. Limits in its
+                docstring
+  4i. parallel - (parallel_phase) the multi-device layer on the one card,
+                nothing on more than one device: make_parallel_train_step
+                in a world of one process (NCCL) and in two processes
+                sharing the card (gloo), each against the unsharded step
+                at 1e-6 with 1 forward and 1 hand adjoint launch per rank;
+                parallel_cohort_sim and chain-sharded run_nuts (fused) in
+                the world of two against one process's runs. Limits in its
                 docstring
   5. timing   - CUDA events, median of 20: forward and backward kernels at
                 the cohort shape, one train step (fwd kernel + bwd kernel +
@@ -2697,6 +2710,348 @@ def clinical_phase(device, smi, work_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: the multi-device layer on torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_WORLD = 2          # processes sharing the one card over gloo in (b)
+PARALLEL_RTOL = 1e-6        # sharded vs unsharded: step (relative), NUTS (of each leaf's scale)
+PARALLEL_SIM_RTOL = 1e-5    # cohort simulation per window vs one process (4d's while limit)
+PARALLEL_NUTS = dict(n_chains=64, num_warmup=12, num_samples=2, max_depth=2, engine="fused")
+PARALLEL_STEP_REPS = 3      # timed sharded steps after the checked one
+PARALLEL_REDUCE_REPS = 10   # timed all-reduces of the gradient's size
+
+
+def parallel_step_inputs(ds, device, n):
+    """The accuracy checkpoint (use_pallas) and its train batch on the n-window
+    cohort with a numpy-drawn mask (unequal counts per window), as every
+    process of phase 4i builds them."""
+    state, meta = load_checkpoint(str(CKPT))
+    config = config_from_dict(meta["config"], use_pallas=True)
+    params = params_from_numpy(state["params"], device)
+    batch, ctrl = cohort_inputs(ds, params, config, device, n)
+    mask = (np.random.default_rng(3).uniform(size=batch["time_points"].shape) > 0.1)
+    train_batch = dict(batch, external_inputs={k: ctrl.signals[k] for k in ("meal", "tVNS")},
+                       mask=torch.as_tensor(mask.astype(np.float32), device=device),
+                       loss_weights=torch.as_tensor(ds.loss_weights, device=device))
+    tcfg = meta["config"]["training"]
+    return state["params"], config, train_batch, (tcfg.get("lambda1", 1.0),
+                                                   tcfg.get("lambda2", 1.0))
+
+
+def parallel_step(params_np, config, lambdas, device, mesh=None):
+    """(state, optimizer, step) of one update from `params_np`: the port's
+    train step, or with `mesh` its data-parallel step over the mesh's 'data'."""
+    from hybrid_ode_torch.parallel.mesh import replicate
+    from hybrid_ode_torch.parallel.train_parallel import make_parallel_train_step
+
+    tree = params_np if mesh is None else replicate(mesh, params_np)
+    state = TrainState(_to_params(tree, device))
+    opt = make_optimizer(3e-3, 1000, 1, 5.0, train_ode_params=True).bind(state.params)
+    if mesh is None:
+        step = make_train_step(opt, config, *lambdas, True)
+    else:
+        step = make_parallel_train_step(mesh, opt, config, *lambdas, True)
+    return state, step
+
+
+def step_result(state, metrics):
+    """(loss, grad_norm, {leaf: numpy}) after a step."""
+    return (float(metrics["loss"]), float(metrics["grad_norm"]),
+            {f"{g}/{k}": v.detach().cpu().numpy().copy() for g, grp in state.params.items()
+             for k, v in grp.items()})
+
+
+def compare_steps(ref, got, label):
+    """The step's loss, grad norm and every updated leaf within
+    PARALLEL_RTOL; returns (worst relative error, every leaf bitwise equal)."""
+    worst = max(abs(got[0] - ref[0]) / abs(ref[0]), abs(got[1] - ref[1]) / abs(ref[1]))
+    bitwise = got[0] == ref[0] and got[1] == ref[1]
+    for k, v in ref[2].items():
+        worst = max(worst, rel_err(torch.as_tensor(v), torch.as_tensor(got[2][k])))
+        bitwise = bitwise and np.array_equal(v, got[2][k])
+    print(f"parallel {label}: loss {got[0]:.9f} (unsharded {ref[0]:.9f}), grad norm {got[1]:.6f} "
+          f"(unsharded {ref[1]:.6f}), worst relative error over loss, norm and every updated "
+          f"leaf {worst:.2e} (limit {PARALLEL_RTOL}); bitwise equal: {bitwise}")
+    if not worst <= PARALLEL_RTOL:
+        fail(f"parallel {label}: the sharded step disagrees with the unsharded one")
+    return worst, bitwise
+
+
+def time_host_ms(fn, reps, device):
+    """Median host ms of fn() followed by a synchronize."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def reduce_ms(mesh, state):
+    """Host ms of one all-reduce of a flat buffer of the gradient's size."""
+    from hybrid_ode_torch.parallel.mesh import all_reduce_sum
+
+    n = sum(t.numel() for grp in state.params.values() for t in grp.values())
+    buf = torch.ones(n, device=next(iter(state.params["nn"].values())).device)
+    all_reduce_sum(mesh, "data", buf)
+    return time_host_ms(lambda: all_reduce_sum(mesh, "data", buf), PARALLEL_REDUCE_REPS,
+                        buf.device), n
+
+
+def per_window_rel(ref, x):
+    """Each window's max |x - ref| over its max |ref|."""
+    B = ref.shape[0]
+    return (np.abs(x - ref).reshape(B, -1).max(1)
+            / np.maximum(np.abs(ref).reshape(B, -1).max(1), 1e-8))
+
+
+def parallel_sim_inputs(ds, device, n):
+    """checkpoints/4gi_baseline_full (dopri5) and the n-window cohort's
+    initial states on the first window's grid."""
+    state, meta = load_checkpoint(str(ADAPTIVE_CKPT))
+    config = config_from_dict(meta["config"])
+    params = params_from_numpy(state["params"], device)
+    batch, _ = cohort_inputs(ds, params, config, device, n)
+    return params, config, batch["initial_state"], torch.as_tensor(ds.time_points[0],
+                                                                   device=device)
+
+
+def parallel_nuts_inputs(device):
+    """checkpoints/latent_hybrid_z and the data file's first NUTS_WINDOWS windows."""
+    state, meta = load_checkpoint(str(NUTS_CKPT))
+    norm = (np.asarray(meta["state_mean"], np.float32), np.asarray(meta["state_std"], np.float32))
+    ds = create_data_arrays(str(DATA), 61, 30, norm_stats=norm, use_native=False)
+    return (params_from_numpy(state["params"], device), batch_to_tensors(
+        ds.batch(np.arange(NUTS_WINDOWS)), device), config_from_dict(meta["config"]))
+
+
+def parallel_rank(rank, store, work, device="cuda", n=COHORT):
+    """One of phase 4i (b)'s processes: join the gloo world on `device` (the
+    card), run the sharded step on its n / PARALLEL_WORLD windows, its shard
+    of the cohort simulation and its chains, and save what it got to `work`."""
+    from hybrid_ode_torch.inference import mcmc
+    from hybrid_ode_torch.parallel import distributed
+    from hybrid_ode_torch.parallel.mesh import make_mesh, shard_batch
+    from hybrid_ode_torch.parallel.train_parallel import parallel_cohort_sim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"file://{store}", PARALLEL_WORLD, rank, backend="gloo",
+                           device=device)
+    device = distributed.rank_device()
+    info, arrays = {"backend": torch.distributed.get_backend(), "device": str(device)}, {}
+    try:
+        mesh = make_mesh(PARALLEL_WORLD)
+        info["world"] = torch.distributed.get_world_size()
+        ds = create_data_arrays(str(DATA), 61, 30, use_native=False)
+        params_np, config, batch, lambdas = parallel_step_inputs(ds, device, n)
+        batch = shard_batch(mesh, batch)
+        state, step = parallel_step(params_np, config, lambdas, device, mesh)
+        fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+        state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+        info["step_launches"] = [fused_rk4.fused_rk4_fwd_launches,
+                                 fused_rk4.fused_rk4_bwd_launches]
+        loss, gnorm, leaves = step_result(state, metrics)
+        info.update(loss=loss, grad_norm=gnorm, windows=int(batch["initial_state"].shape[0]))
+        arrays.update({f"step/{k}": v for k, v in leaves.items()})
+        gen = torch.Generator().manual_seed(0)
+        info["step_ms"] = time_host_ms(lambda: step(state, batch, gen), PARALLEL_STEP_REPS,
+                                       device)
+        info["reduce_ms"], info["reduce_floats"] = reduce_ms(mesh, state)
+
+        sim_params, sim_config, y0s, ts = parallel_sim_inputs(ds, device, n)
+        fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+        t0 = time.perf_counter()
+        arrays["sim"] = parallel_cohort_sim(mesh, sim_config)(sim_params, y0s, ts).cpu().numpy()
+        info["sim_s"] = time.perf_counter() - t0
+        info["sim_launches"] = [fused_rk4.fused_rk4_fwd_launches,
+                                fused_rk4.fused_rk4_bwd_launches]
+
+        nparams, nbatch, ncfg = parallel_nuts_inputs(device)
+        fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+        t0 = time.perf_counter()
+        res = mcmc.run_nuts(nparams, nbatch, ncfg, torch.Generator(device).manual_seed(5),
+                            mesh=mesh, **PARALLEL_NUTS)
+        info["nuts_s"] = time.perf_counter() - t0
+        info["nuts_launches"] = [fused_rk4.fused_rk4_fwd_launches,
+                                 fused_rk4.fused_rk4_bwd_launches]
+        arrays.update({f"nuts/{k}": np.asarray(v) for k, v in res.items()})
+    finally:
+        distributed.shutdown()
+    np.savez(Path(work) / f"rank{rank}.npz", **arrays)
+    (Path(work) / f"rank{rank}.json").write_text(json.dumps(info))
+    return 0
+
+
+def parallel_phase(ds, device, smi, work, n=COHORT):
+    """Phase 4i: the multi-device layer (hybrid_ode_torch/parallel/) on the one
+    card. Nothing here runs on more than one device: (a) a world of one
+    process with NCCL; (b) a world of PARALLEL_WORLD processes sharing the
+    card over gloo (NCCL refuses two ranks on one device).
+
+    (a) make_parallel_train_step, one step of the accuracy checkpoint
+    (use_pallas, H=128, 4 layers, rk4, substeps 4, 16 context features) on
+    the 8192-window cohort (T=61, a numpy-drawn mask) against the port's
+    unsharded step: loss, gradient norm and every updated leaf within
+    PARALLEL_RTOL, the fused launches exactly 1 forward and 1 hand adjoint.
+    (b) each process: the same step on its 4096 windows within PARALLEL_RTOL
+    of (a)'s unsharded step (1 + 1 launches per rank); parallel_cohort_sim of
+    checkpoints/4gi_baseline_full (dopri5 'while') on the 8192 windows
+    against this process's run of the same shards, per window within
+    PARALLEL_SIM_RTOL (its run of all 8192 windows at once is printed, not
+    held: in f32 at the checkpoint's rtol 1e-6 the step control amplifies
+    the MLP products' rounding, which cuBLAS makes depend on the batch
+    size); run_nuts(engine='fused') on checkpoints/latent_hybrid_z,
+    2 x 32 chains x NUTS_WINDOWS windows, depth 2, 12 warmup transitions and
+    2 draws, against the unsharded run of the 64 chains: every draw, step
+    size and the accept statistics within PARALLEL_RTOL of each leaf's scale.
+    Prints the backend, the world size, host ms per sharded step and per
+    all-reduce of the gradient's size, and the launches per rank."""
+    from hybrid_ode_torch.inference import mcmc
+    from hybrid_ode_torch.models.hybrid import forward
+    from hybrid_ode_torch.parallel import distributed
+    from hybrid_ode_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    out = {}
+    params_np, config, batch, lambdas = parallel_step_inputs(ds, device, n)
+    B = batch["initial_state"].shape[0]
+    state, step = parallel_step(params_np, config, lambdas, device)
+    ref = step_result(*step(state, batch, torch.Generator().manual_seed(0)))
+
+    # (a) a world of one process, NCCL
+    mesh = make_mesh(device=device)
+    backend, world = torch.distributed.get_backend(), torch.distributed.get_world_size()
+    state, pstep = parallel_step(params_np, config, lambdas, device, mesh)
+    fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+    got = step_result(*pstep(state, batch, torch.Generator().manual_seed(0)))
+    launches = (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches)
+    worst, bitwise = compare_steps(ref, got, f"(a) {backend} world of {world}, B={B}")
+    if launches != (1, 1):
+        fail(f"parallel (a): the sharded step launched {launches}, not one forward and one "
+             "hand adjoint")
+    gen = torch.Generator().manual_seed(0)
+    step_ms = time_host_ms(lambda: pstep(state, batch, gen), PARALLEL_STEP_REPS, device)
+    red_ms, n_floats = reduce_ms(mesh, state)
+    distributed.shutdown()
+    print(f"parallel (a) ({smi}): backend {backend}, world {world}; host ms per sharded step "
+          f"{step_ms:.3f} (median of {PARALLEL_STEP_REPS}); per all-reduce of {n_floats} floats "
+          f"{red_ms:.3f} (median of {PARALLEL_REDUCE_REPS}); launches (fwd, bwd) {launches}")
+    out["a"] = {"backend": backend, "world": world, "rel_err": worst, "bitwise": bitwise,
+                "launches": launches, "step_ms": step_ms, "reduce_ms": red_ms,
+                "reduce_floats": n_floats}
+
+    # (b) the unsharded references, then PARALLEL_WORLD processes on the card
+    sim_params, sim_config, y0s, ts = parallel_sim_inputs(ds, device, n)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        # one process's run of the ranks' shards, and of the whole cohort at once
+        sim_ref = torch.cat([forward(sim_params, y, ts, None, sim_config, mode="while")
+                             for y in y0s.chunk(PARALLEL_WORLD)]).cpu().numpy()
+        sim_whole = forward(sim_params, y0s, ts, None, sim_config, mode="while").cpu().numpy()
+    sim_s = time.perf_counter() - t0
+    whole = per_window_rel(sim_ref, sim_whole)
+    print(f"parallel (b): one process's cohort simulation in {PARALLEL_WORLD} shards vs the "
+          f"{B} windows at once: worst window {whole.max():.2e}, {int((whole == 0).sum())} "
+          f"windows equal (not held: f32 dopri5 at rtol {sim_config.rtol} amplifies the "
+          "matmuls' rounding, which depends on the batch size)")
+    nparams, nbatch, ncfg = parallel_nuts_inputs(device)
+    t0 = time.perf_counter()
+    nuts_ref = mcmc.run_nuts(nparams, nbatch, ncfg, torch.Generator(device).manual_seed(5),
+                             **PARALLEL_NUTS)
+    nuts_s = time.perf_counter() - t0
+    store = Path(work) / "store"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+                               str(r), str(store), str(work), device.type, str(n)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(PARALLEL_WORLD)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    world_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-4000:])
+            fail(f"parallel (b): rank {r} exited {p.returncode}")
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+        with np.load(Path(work) / f"rank{r}.npz") as f:
+            arrays = dict(f)
+        ranks.append((arrays, json.loads((Path(work) / f"rank{r}.json").read_text())))
+    out["b"] = {"seconds": world_s, "ranks": [info for _, info in ranks],
+                "sim_whole_vs_shards": float(whole.max())}
+    for r, (arrays, info) in enumerate(ranks):
+        label = (f"(b) rank {r}/{info['world']} {info['backend']} on {info['device']}, "
+                 f"{info['windows']} windows")
+        leaves = {k[5:]: v for k, v in arrays.items() if k.startswith("step/")}
+        out["b"][f"rank{r}_step"] = compare_steps(ref, (info["loss"], info["grad_norm"], leaves),
+                                                  label)
+        if info["step_launches"] != [1, 1]:
+            fail(f"parallel {label}: the sharded step launched {info['step_launches']}")
+        per_window = per_window_rel(sim_ref, arrays["sim"])
+        equal = int((arrays["sim"] == sim_ref).reshape(B, -1).all(1).sum())
+        print(f"parallel {label}: parallel_cohort_sim ({sim_config.solver} 'while') of {B} "
+              f"windows vs one process's run of the same shards: worst window "
+              f"{per_window.max():.2e} (limit "
+              f"{PARALLEL_SIM_RTOL}), {equal} windows bitwise equal, finite "
+              f"{bool(np.isfinite(arrays['sim']).all())}")
+        if not (per_window.max() <= PARALLEL_SIM_RTOL and np.isfinite(arrays["sim"]).all()):
+            fail(f"parallel {label}: the sharded cohort simulation disagrees")
+        worst_nuts = 0.0
+        for k, v in nuts_ref.items():
+            g = arrays[f"nuts/{k}"]
+            v = np.asarray(v, np.float64)
+            if g.shape != v.shape:
+                fail(f"parallel {label}: NUTS {k} has shape {g.shape}, unsharded {v.shape}")
+            worst_nuts = max(worst_nuts, float(np.abs(g - v).max() / max(np.abs(v).max(), 1e-30)))
+        print(f"parallel {label}: run_nuts(engine='fused') {PARALLEL_NUTS['n_chains']} chains "
+              f"sharded {PARALLEL_WORLD} ways vs unsharded: worst leaf {worst_nuts:.2e} of its "
+              f"scale (limit {PARALLEL_RTOL}); launches per rank: step {info['step_launches']}, "
+              f"sim {info['sim_launches']}, NUTS {info['nuts_launches']}; host ms per sharded "
+              f"step {info['step_ms']:.3f}, per all-reduce of {info['reduce_floats']} floats "
+              f"{info['reduce_ms']:.3f}; sim {info['sim_s']:.2f} s, NUTS {info['nuts_s']:.2f} s")
+        if not worst_nuts <= PARALLEL_RTOL:
+            fail(f"parallel {label}: the chain-sharded NUTS run disagrees with the unsharded one")
+        if info["nuts_launches"][0] < 1 or info["nuts_launches"][0] != info["nuts_launches"][1]:
+            fail(f"parallel {label}: the fused NUTS engine launched {info['nuts_launches']}")
+    print(f"parallel (b) ({smi}): unsharded references sim {sim_s:.2f} s, NUTS {nuts_s:.2f} s; "
+          f"the world of {PARALLEL_WORLD} in {world_s:.1f} s")
+    out["launches"] = [launches[0] + sum(i["step_launches"][0] + i["nuts_launches"][0]
+                                         for _, i in ranks),
+                       launches[1] + sum(i["step_launches"][1] + i["nuts_launches"][1]
+                                         for _, i in ranks)]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"parallel: phase 4i in {out['seconds']:.1f} s")
+    return out
+
+
+def package_api_check():
+    """`import hybrid_ode_torch as ht; ht.HybridConfig` and every sub-package
+    import in a fresh interpreter, which must load none of pandas, pyarrow,
+    matplotlib, PyYAML or JAX (the card machine has none of them)."""
+    code = ("import sys, hybrid_ode_torch as ht; ht.HybridConfig; " + "; ".join(
+        f"import hybrid_ode_torch.{p}" for p in ("data", "dynamics", "evals", "inference", "models",
+                                                 "ops", "parallel", "plots", "solvers", "train",
+                                                 "utils"))
+            + "; print(sorted(m for m in ('pandas', 'pyarrow', 'matplotlib', 'yaml', 'jax') "
+              "if m in sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    loaded = proc.stdout.strip()
+    print(f"api: import hybrid_ode_torch as ht; ht.HybridConfig and every sub-package: exit "
+          f"{proc.returncode}, optional libraries loaded {loaded or '?'}")
+    if proc.returncode != 0 or loaded != "[]":
+        print(proc.stderr[-2000:])
+        fail("the package-level API does not import on the card")
+    return loaded
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2711,6 +3066,7 @@ def main():
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; TF32 off")
     report = {"device": kind, "nvidia_smi": smi}
+    report["api"] = package_api_check()
 
     # 2. build
     t0 = time.perf_counter()
@@ -3092,6 +3448,13 @@ def main():
         report["clinical"] = clinical_phase(device, smi, work)
     clinical_fwd = sum(v[0] for v in report["clinical"]["launches"].values())
 
+    # 4i. the multi-device layer: a world of one (NCCL) and two processes
+    # sharing the card (gloo), each through the fused kernels; launches
+    # counted from 0 per path
+    with tempfile.TemporaryDirectory() as work:
+        report["parallel"] = parallel_phase(ds, device, smi, work)
+    parallel_launches = report["parallel"]["launches"]
+
     # 5. timing
     with torch.no_grad():
         traj_full, gbar_full = bwd_inputs(packed, T, SUBSTEPS)
@@ -3211,7 +3574,7 @@ def main():
          "source": "hybrid_ode_torch/csrc/fused_rk4_fwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:253",
          "launches": (launches + train_launches[0] + id_launches[0] + bayes_launches[0]
-                      + online_launches[0] + clinical_fwd),
+                      + online_launches[0] + clinical_fwd + parallel_launches[0]),
          "max_abs_err": max(*max_abs.values(), online_b1_err["fwd"],
                             report["clinical"]["max_abs_err"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3219,7 +3582,8 @@ def main():
         {"name": "fused_rk4_bwd", "route": "cuda",
          "source": "hybrid_ode_torch/csrc/fused_rk4_bwd.cu",
          "replaces": "hybrid_ode_tpu/ops/pallas_rk4.py:414",
-         "launches": train_launches[1] + id_launches[1] + bayes_launches[1] + online_launches[1],
+         "launches": (train_launches[1] + id_launches[1] + bayes_launches[1] + online_launches[1]
+                      + parallel_launches[1]),
          "max_abs_err": max(*bwd_max_abs.values(), online_b1_err["bwd"]),
          "ms": bwd_ms, "plain_ms": bwd_plain_s * 1e3, "plain_batch": BWD_B,
          "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "library_ms": None,
@@ -3250,4 +3614,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one process of phase 4i (b)
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+                               int(sys.argv[6])))
     sys.exit(main())

@@ -207,7 +207,9 @@ def create_data_arrays(
     With `use_native`, no `per_channel_mask` and no `norm_stats` (the JAX
     package's conditions) the native C++ engine parses the file and builds
     the windows; a file that is not grouped by ascending integer subject id,
-    or lacks a state column, takes the `csv`-module route instead (logged).
+    or lacks a state column, takes the `csv`-module route instead (logged),
+    as does a host where the native library cannot be built (a warning with
+    the compiler's message).
     The native route reads values as f32, as the JAX package's does: on a
     file whose numbers are f32 values written exactly (as
     `data/fourgi_gen.py` writes them) it gives the csv route's arrays bit
@@ -234,6 +236,9 @@ def create_data_arrays(
         except (KeyError, NotGrouped, OSError) as e:
             logger.info("create_data_arrays: csv route for %s (native route declined: %s)",
                         data_path, e)
+        except RuntimeError as e:  # the library cannot be built here
+            logger.warning("create_data_arrays: csv route for %s (native loader unavailable: "
+                           "%s)", data_path, e)
     header, col, keys = read_columns(data_path)
     last_route = "csv" if is_csv else "parquet"
     logger.info("create_data_arrays: %s route for %s", last_route, data_path)

@@ -5,8 +5,9 @@ per-subject window assembly in C++, returning flat f32 window buffers. The
 library is built from the repository's `native/fastwindow.cpp` with `g++` at
 first use into `hybrid_ode_torch/build/`, named by a hash of the source, the
 flags and the host CPU's features (`-march=native`), so a changed source or
-another CPU gets its own build. A failed build raises with the
-compiler's message.
+another CPU gets its own build. A failed build raises RuntimeError with the
+compiler's message; `create_data_arrays` then takes the csv route, as the
+JAX package takes its pandas route where its library is absent.
 """
 
 from __future__ import annotations
@@ -94,6 +95,32 @@ def _load(path: str) -> ctypes.CDLL:
 def load_library() -> ctypes.CDLL:
     """The bound library, built first where needed."""
     return _load(str(build_library()))
+
+
+def native_available() -> bool:
+    """Whether the library builds (or is built) and loads on this host."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def parse_csv(path: str) -> Tuple[np.ndarray, List[str]]:
+    """Parse a numeric CSV natively -> (column-major (n_cols, n_rows) f64,
+    names). RuntimeError where the library cannot be built, OSError on a
+    parse failure."""
+    lib = load_library()
+    csv = _FwCsv()
+    rc = lib.fw_parse_csv(str(path).encode(), ctypes.byref(csv))
+    if rc != 0:
+        raise OSError(f"fw_parse_csv failed with code {rc} for {path}")
+    try:
+        names = csv.header.decode().split(",")
+        arr = np.ctypeslib.as_array(csv.data, shape=(int(csv.n_cols), int(csv.n_rows))).copy()
+    finally:
+        lib.fw_free_csv(ctypes.byref(csv))
+    return arr, names
 
 
 class NotGrouped(ValueError):

@@ -27,6 +27,10 @@ Port of `hybrid_ode_tpu/inference/mcmc.py`:
     ODE parameters as per-lane context rows applied absolutely
     (`ctx_param_mode='abs'`): every leapfrog of all chains is one forward
     and one hand-adjoint kernel launch.
+  * Across devices (`nuts_sample(mesh=)`, `run_nuts(mesh=)`) each rank runs
+    its block of the chains on the same draws the unsharded run makes; the
+    tree loop's active count and the warmup's Welford sums are all-reduced,
+    and the results gathered in chain order.
 
 Diagnostics (split R-hat, bulk / tail ESS on rank-normalised draws) and
 persistence (an h5py NetCDF4 file, else npz + json) are numpy, as in the
@@ -44,6 +48,7 @@ import torch
 from hybrid_ode_torch.data.dataset import batch_to_tensors
 from hybrid_ode_torch.models.bayes import forward_samples
 from hybrid_ode_torch.models.hybrid import controls_from_batch, with_context
+from hybrid_ode_torch.parallel.mesh import DataShards, all_gather_cat, axis_size, local_slice
 
 logger = logging.getLogger("hybrid_ode_torch.mcmc")
 
@@ -133,7 +138,7 @@ class TorchDraws:
 # ---------------------------------------------------------------------------
 
 def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.Tensor,
-               inv_mass: torch.Tensor, max_depth: int):
+               inv_mass: torch.Tensor, max_depth: int, chains: Optional["_ChainShard"] = None):
     """One NUTS transition of C chains: q0 (C, dim), eps (C,), inv_mass
     (dim,). Returns (q_new, accept_stat, n_leapfrog, diverged), each with a
     leading (C,).
@@ -141,7 +146,13 @@ def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.T
     One loop over leapfrog steps, the doubling structure (direction, subtree
     reset, merge) from a (depth, position) counter pair per chain: a turned
     or diverged subtree ends the chain's transition and is discarded (its
-    end points and weight revert). NaN energy errors give alpha = 0."""
+    end points and weight revert). NaN energy errors give alpha = 0.
+
+    chains: q0 is this rank's shard of chains sharded over a mesh dim. The
+    loop then runs until no chain on ANY rank is active (an all-reduce of
+    the active count, at the loop's host synchronisation), so that every
+    rank draws as many iterations as the unsharded run; a rank with no
+    active chain of its own only draws."""
     global host_syncs, transitions
     transitions += 1
     C, dim = q0.shape
@@ -167,9 +178,14 @@ def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.T
         active = ~c["done"] & (c["depth"] < max_depth)
         host_syncs += 1
         n_active = int(active.sum())
-        if n_active == 0:
+        if chains is not None:
+            if chains.total(n_active) == 0:
+                break
+        elif n_active == 0:
             break
         dir_bit, u_take, u_merge = (x.to(dev) for x in draws.iteration(active))
+        if n_active == 0:
+            continue
         # doubling start: sample a direction, reset the subtree
         starting = c["pos"] == 0
         direction = torch.where(starting, torch.where(dir_bit, 1.0, -1.0).to(dtype),
@@ -274,10 +290,39 @@ def _da_update(da: _DAState, accept_stat, target=0.8, gamma=0.05, t0=10.0,
 # Public driver
 # ---------------------------------------------------------------------------
 
-def _multi_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("sharding the chains over devices (mesh) is not ported "
-                                  "yet: ROADMAP Queue A 11")
+class _ChainShard:
+    """This rank's block of C chains sharded over the mesh dim `axis`."""
+
+    def __init__(self, mesh, axis: str, n_chains: int):
+        size = axis_size(mesh, axis)
+        if n_chains % size != 0:
+            raise ValueError(
+                f"nuts_sample: n_chains={n_chains} must be a multiple of "
+                f"mesh axis {axis!r} (size {size}) to shard the "
+                f"chain axis — pad the chain count or shrink the mesh.")
+        self.mesh, self.axis, self.n_chains = mesh, axis, n_chains
+        self.slice = local_slice(mesh, n_chains, axis)
+        self.total = DataShards(mesh, axis).total  # a sum over the dim's ranks
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' blocks of a per-chain tensor in chain order."""
+        return all_gather_cat(self.mesh, self.axis, x, dim)
+
+
+class _ShardDraws:
+    """A draw source for one rank's chains: every draw is made for all C
+    chains from the wrapped source (seeded alike on every rank) and this
+    rank keeps its block, so the draws equal the unsharded run's."""
+
+    def __init__(self, draws, chains: _ChainShard):
+        self.draws, self.chains = draws, chains
+
+    def momentum(self, n_chains: int, dim: int, dtype: torch.dtype) -> torch.Tensor:
+        return self.draws.momentum(self.chains.n_chains, dim, dtype)[self.chains.slice]
+
+    def iteration(self, active: torch.Tensor):
+        every = active.new_ones((self.chains.n_chains,))
+        return tuple(x[self.chains.slice] for x in self.draws.iteration(every))
 
 
 def nuts_sample(logp_fn: Optional[Callable[[torch.Tensor], torch.Tensor]], q_init: torch.Tensor,
@@ -301,18 +346,39 @@ def nuts_sample(logp_fn: Optional[Callable[[torch.Tensor], torch.Tensor]], q_ini
 
     Returns numpy arrays: samples (chains, draws, dim); accept_stat,
     diverging, n_leapfrog (draws, chains) (n_leapfrog summed over the
-    thinned transitions); step_size (chains,); inv_mass (dim,)."""
-    _multi_device(mesh)
+    thinned transitions); step_size (chains,); inv_mass (dim,).
+
+    mesh: shard the chains over the mesh dim `mesh_axis` (n_chains a
+    multiple of its size, else ValueError). Every rank passes all of
+    q_init and a generator seeded alike; it runs its block of chains (under
+    engine 'fused' their windows on the lanes of one forward and one
+    adjoint launch per leapfrog), drawing every random number for all chains
+    and keeping its block's, and keeps iterating a transition's tree loop
+    until no chain on any rank is active. The warmup's Welford moments over
+    all chains take two all-reduces per transition (the sum of the
+    deviations, then of their products); dual averaging is per chain. The
+    results are gathered to every rank in chain order, equal to the
+    unsharded run's draw for draw."""
     n_chains, dim = q_init.shape
     dtype, dev = q_init.dtype, q_init.device
+    chains = _ChainShard(mesh, mesh_axis, n_chains) if mesh is not None else None
     if draws is None:
         draws = TorchDraws(generator if generator is not None
                            else torch.Generator(dev).manual_seed(0))
+    if chains is not None:
+        draws = _ShardDraws(draws, chains)
+        q_init = q_init[chains.slice]
     if logp_and_grad_fn is None:
         logp_and_grad_fn = autograd_logp_and_grad(logp_fn)
 
+    def total(x):
+        return x if chains is None else chains.total(x)
+
+    def gather(x, dim=0):
+        return x if chains is None else chains.gather(x, dim)
+
     def step(q, eps, inv_mass):
-        return _nuts_step(logp_and_grad_fn, q, draws, eps, inv_mass, max_depth)
+        return _nuts_step(logp_and_grad_fn, q, draws, eps, inv_mass, max_depth, chains)
 
     def warmup(q, da, inv_mass, n, label):
         mean = torch.zeros((dim,), dtype=dtype, device=dev)
@@ -322,14 +388,16 @@ def nuts_sample(logp_fn: Optional[Callable[[torch.Tensor], torch.Tensor]], q_ini
             q, astat, _, _ = step(q, torch.exp(da.log_eps), inv_mass)
             da = _da_update(da, astat, target_accept)
             cnt += n_chains  # Welford over all chains' positions
+            # the chain sums accumulate in f64, where a shard's partial sums
+            # add up exactly: sharded and unsharded runs round alike
             delta = q - mean
-            mean = mean + delta.sum(0) / cnt
-            m2 = m2 + (delta * (q - mean)).sum(0)
+            mean = mean + (total(delta.sum(0, dtype=torch.float64)) / cnt).to(dtype)
+            m2 = m2 + total((delta * (q - mean)).sum(0, dtype=torch.float64)).to(dtype)
             logger.debug("%s %d/%d", label, i + 1, n)
         return q, da, m2, cnt
 
     inv_mass = torch.ones((dim,), dtype=dtype, device=dev)
-    da = _da_init(torch.full((n_chains,), init_step_size, dtype=dtype, device=dev))
+    da = _da_init(torch.full((q_init.shape[0],), init_step_size, dtype=dtype, device=dev))
     half = num_warmup // 2
     with torch.no_grad():
         q, da, m2, cnt = warmup(q_init.detach(), da, inv_mass, max(half, 1), "warmup(I)")
@@ -347,17 +415,21 @@ def nuts_sample(logp_fn: Optional[Callable[[torch.Tensor], torch.Tensor]], q_ini
             for _ in range(thin):
                 q, astat, lf, div = step(q, eps_final, inv_mass)
                 n_lf = n_lf + lf
-            samples.append(q.cpu().numpy())
-            astats.append(astat.cpu().numpy())
-            divs.append(div.cpu().numpy())
-            n_lfs.append(n_lf.cpu().numpy())
+            samples.append(q)
+            astats.append(astat)
+            divs.append(div)
+            n_lfs.append(n_lf)
             logger.debug("sampling %d/%d", i + 1, num_samples)
+
+    def per_draw(xs):  # (draws, chains)
+        return gather(torch.stack(xs), 1).cpu().numpy()
+
     return {
-        "samples": np.swapaxes(np.stack(samples), 0, 1),  # (chains, draws, dim)
-        "accept_stat": np.stack(astats),
-        "diverging": np.stack(divs),
-        "n_leapfrog": np.stack(n_lfs),
-        "step_size": eps_final.cpu().numpy(),
+        "samples": gather(torch.stack(samples, 1)).cpu().numpy(),  # (chains, draws, dim)
+        "accept_stat": per_draw(astats),
+        "diverging": per_draw(divs),
+        "n_leapfrog": per_draw(n_lfs),
+        "step_size": gather(eps_final).cpu().numpy(),
         "inv_mass": inv_mass.cpu().numpy(),
     }
 
@@ -618,8 +690,10 @@ def run_nuts(params: Dict[str, Dict[str, torch.Tensor]], batch: Dict, config,
     NUTS on q; the samples are mapped back.
 
     Returns {name: (chains * draws, ...)} numpy arrays, plus '_accept_stat',
-    '_diverging' (draws, chains) and '_step_size' (chains,)."""
-    _multi_device(mesh)
+    '_diverging' (draws, chains) and '_step_size' (chains,).
+
+    mesh: shard the chains over the mesh dim `mesh_axis` (`nuts_sample`);
+    every rank passes the same arguments and gets the whole result."""
     post = posterior(params, batch, config, engine, noise_sigma, include_nn)
     layout, q0_flat = post.layout, post.q0
     dev, dim = q0_flat.device, layout.dim
@@ -658,7 +732,7 @@ def run_nuts(params: Dict[str, Dict[str, torch.Tensor]], batch: Dict, config,
                 dense_mass)
     out = nuts_sample(None, q_init, generator, num_samples=num_samples,
                       num_warmup=num_warmup, max_depth=max_depth, target_accept=target_accept,
-                      logp_and_grad_fn=logp_and_grad)
+                      logp_and_grad_fn=logp_and_grad, mesh=mesh, mesh_axis=mesh_axis)
     if dense_info is not None:
         idx_d, c_d, A_d = dense_info
         s = np.array(out["samples"])  # (chains, draws, dim) in z-space

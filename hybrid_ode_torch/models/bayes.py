@@ -22,7 +22,7 @@ import torch
 from hybrid_ode_torch.dynamics.controls import Controls
 from hybrid_ode_torch.dynamics.ode_core import BAYES_ODE_PARAM_NAMES
 from hybrid_ode_torch.models.hybrid import HybridConfig, batched_forward, flat_to_params
-from hybrid_ode_torch.parallel.ensemble import _member_view, _members, _no_pallas
+from hybrid_ode_torch.parallel import ensemble as _ens
 
 
 class VariationalState(NamedTuple):
@@ -143,10 +143,10 @@ def forward_samples(samples: Mapping[str, torch.Tensor], template: Mapping[str, 
     if ts.ndim == 1:
         ts = ts[None, :].expand(y0.shape[0], ts.shape[0])
     # the member-stacked layout: every leaf (n, ...), the template's viewed
-    stacked = flat_to_params(samples, {g: {k: _members(v, n) for k, v in grp.items()}
+    stacked = flat_to_params(samples, {g: {k: _ens._members(v, n) for k, v in grp.items()}
                                        for g, grp in template.items()})
     if controls is not None:
-        controls = Controls(ts=_members(controls.ts, n),
-                            signals={k: _members(v, n) for k, v in controls.signals.items()})
-    return batched_forward(_member_view(stacked, 1), _members(y0, n), _members(ts, n),
-                           controls, _no_pallas(config))
+        controls = Controls(ts=_ens._members(controls.ts, n),
+                            signals={k: _ens._members(v, n) for k, v in controls.signals.items()})
+    return batched_forward(_ens._member_view(stacked, 1), _ens._members(y0, n),
+                           _ens._members(ts, n), controls, _ens._no_pallas(config))

@@ -745,6 +745,16 @@ def _per_point_controls(controls: Optional[Controls], n_pts: int) -> Optional[Co
                     signals={k: at_points(v) for k, v in controls.signals.items()})
 
 
+def _total(x: torch.Tensor, shards) -> torch.Tensor:
+    """A denominator over the whole batch: `x` summed over the shards."""
+    return x if shards is None else shards.total(x.detach())
+
+
+def _share_mean(x: torch.Tensor, shards) -> torch.Tensor:
+    """The mean of x, or this shard's share of the mean over all shards' elements."""
+    return torch.mean(x) if shards is None else torch.sum(x) / shards.total(x.numel())
+
+
 def hybrid_loss(
     params: Mapping[str, Any],
     batch: Mapping[str, Any],
@@ -753,6 +763,7 @@ def hybrid_loss(
     lambda1: float = 1.0,
     lambda2: float = 1.0,
     use_physics_loss: bool = True,
+    shards=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Combined loss; returns (total, components dict).
 
@@ -761,7 +772,14 @@ def hybrid_loss(
     (B,T,n) and loss_weights (n,). Data term: masked / channel-masked /
     weighted MSE; physics term: finite differences against the field at
     interval midpoints, on intervals drawn from `generator`; L2 on the MLP
-    weights (weighted by lambda2 twice, as in the JAX package)."""
+    weights (weighted by lambda2 twice, as in the JAX package).
+
+    shards (`parallel/mesh.py::DataShards`): the batch is this rank's shard
+    of one sharded over a mesh dim. Each term is then its share of the whole
+    batch's term: sums over the shard divided by the denominators summed
+    over the dim's ranks (the mask counts, the physics points), and the L2
+    term over the number of ranks, so that the shares (and their gradients)
+    sum to the loss of the whole batch. `solver_success` stays the shard's."""
     if config.shooting_segments > 1:
         batch = segment_batch(batch, config.shooting_segments)
     y0 = batch["initial_state"]
@@ -784,12 +802,12 @@ def hybrid_loss(
         se = se * w_state
     mask_ch = batch.get("mask_channels")
     if mask_ch is not None:
-        data_loss = torch.sum(mask_ch * se) / (torch.sum(mask_ch) + 1e-8)
+        data_loss = torch.sum(mask_ch * se) / (_total(torch.sum(mask_ch), shards) + 1e-8)
     elif mask is None:
-        data_loss = torch.mean(se)
+        data_loss = _share_mean(se, shards)
     else:
         w = mask[..., None]
-        data_loss = torch.sum(w * se) / (torch.sum(w) * obs.shape[-1] + 1e-8)
+        data_loss = torch.sum(w * se) / (_total(torch.sum(w), shards) * obs.shape[-1] + 1e-8)
 
     physics_loss = torch.zeros((), dtype=preds.dtype, device=preds.device)
     if use_physics_loss and lambda1 > 0:
@@ -806,11 +824,13 @@ def hybrid_loss(
         pe = (fd - rhs) ** 2
         if w_state is not None:
             pe = pe * w_state
-        physics_loss = torch.mean(pe)
+        physics_loss = _share_mean(pe, shards)
 
     reg_loss = torch.zeros((), dtype=preds.dtype, device=preds.device)
     if lambda2 > 0 and config.use_nn:
         reg_loss = mlp_l2(params["nn"], l2_weight=lambda2)
+        if shards is not None:
+            reg_loss = reg_loss / shards.size
 
     total = data_loss + lambda1 * physics_loss + lambda2 * reg_loss
     return total, {"data": data_loss, "physics": physics_loss, "reg": reg_loss,

@@ -1,8 +1,8 @@
 """Deep ensembles: K hybrid models trained, identified and evaluated in one pass.
 
-Port of `hybrid_ode_tpu/parallel/ensemble.py` on one device. The JAX package
-vmaps one member's program over a member axis; here the member axis is
-written out, so that all K members run the launches of one:
+Port of `hybrid_ode_tpu/parallel/ensemble.py`. The JAX package vmaps one
+member's program over a member axis; here the member axis is written out,
+so that all K members run the launches of one:
 
   * every parameter leaf carries a leading (K,): ODE scalars (K,), MLP
     weights (K, in, out), biases (K, out) (the layout of the JAX package's
@@ -23,6 +23,11 @@ Per-member training keeps the JAX protocol: clip by each member's global
 norm, Adam with a cosine schedule on a per-member update count, and a member
 whose loss or gradient norm is not finite skips its update (parameters,
 moments and count stay), so it falls one step behind the others.
+
+Across devices (`make_ensemble_train_step(mesh=)`) the members shard over
+the mesh dim 'ens' with no traffic between its ranks, and on a 2D
+(ens, data) mesh the batch shards over 'data', whose ranks sum their
+gradients.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from hybrid_ode_torch.models.hybrid import (
     _frozen,
     _identification_window,
     _refine,
+    _total,
     _window_misfit,
     batched_forward,
     context_features,
@@ -51,6 +57,14 @@ from hybrid_ode_torch.models.hybrid import (
     hybrid_field,
     init_hybrid_params,
     segment_batch,
+)
+from hybrid_ode_torch.parallel.mesh import (
+    DataShards,
+    ShardedBatch,
+    all_gather_cat,
+    all_reduce_sum,
+    all_reduce_tensors,
+    shard_batch,
 )
 from hybrid_ode_torch.train.loop import _leaves, _snapshot, trains
 from hybrid_ode_torch.utils.device import resolve_device
@@ -228,6 +242,14 @@ def _member_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x.reshape(x.shape[0], -1), dim=1)
 
 
+def _member_mean(x: torch.Tensor, shards) -> torch.Tensor:
+    """Each member's mean of x (K, ...), or its shard's share of the mean
+    over all shards' elements."""
+    if shards is None:
+        return torch.mean(x.reshape(x.shape[0], -1), dim=1)
+    return _member_sum(x) / shards.total(x[0].numel())
+
+
 def ensemble_loss(
     stacked: Params,
     batch: Mapping[str, torch.Tensor],
@@ -236,12 +258,15 @@ def ensemble_loss(
     lambda1: float = 1.0,
     lambda2: float = 1.0,
     use_physics_loss: bool = True,
+    shards=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """`hybrid_loss` of every member on a shared batch: (K,) totals and (K,)
     components {'data', 'physics', 'reg', 'solver_success'}, each term
     reduced per member with the single-model loss's masks and weights. The
     physics term's intervals come from `generators` (one per member, or one
-    draw for all)."""
+    draw for all). shards: the batch is this rank's shard of one sharded
+    over a mesh dim; each term is its share of the whole batch's, as in
+    `hybrid_loss(shards=)`."""
     cfg = _no_pallas(config)
     if cfg.shooting_segments > 1:
         batch = segment_batch(batch, cfg.shooting_segments)
@@ -263,12 +288,12 @@ def ensemble_loss(
     mask = batch.get("mask")
     mask_ch = batch.get("mask_channels")
     if mask_ch is not None:
-        data_loss = _member_sum(mask_ch * se) / (torch.sum(mask_ch) + 1e-8)
+        data_loss = _member_sum(mask_ch * se) / (_total(torch.sum(mask_ch), shards) + 1e-8)
     elif mask is None:
-        data_loss = torch.mean(se.reshape(K, -1), dim=1)
+        data_loss = _member_mean(se, shards)
     else:
         w = mask[..., None]
-        data_loss = _member_sum(w * se) / (torch.sum(w) * obs.shape[-1] + 1e-8)
+        data_loss = _member_sum(w * se) / (_total(torch.sum(w), shards) * obs.shape[-1] + 1e-8)
 
     zeros = torch.zeros((K,), dtype=preds.dtype, device=preds.device)
     physics_loss = zeros
@@ -288,12 +313,14 @@ def ensemble_loss(
         pe = (fd - rhs) ** 2
         if w_state is not None:
             pe = pe * w_state
-        physics_loss = torch.mean(pe.reshape(K, -1), dim=1)
+        physics_loss = _member_mean(pe, shards)
 
     reg_loss = zeros
     if lambda2 > 0 and cfg.use_nn:
         reg_loss = lambda2 * sum(_member_sum(v * v) for k, v in stacked["nn"].items()
                                  if k.startswith("w"))
+        if shards is not None:
+            reg_loss = reg_loss / shards.size
 
     total = data_loss + lambda1 * physics_loss + lambda2 * reg_loss
     return total, {"data": data_loss, "physics": physics_loss, "reg": reg_loss,
@@ -398,32 +425,61 @@ def init_ensemble_state(optimizer: EnsembleOptimizer, stacked: Params) -> Ensemb
 
 def make_ensemble_train_step(optimizer: EnsembleOptimizer, config: HybridConfig,
                              lambda1: float = 0.0, lambda2: float = 0.01,
-                             use_physics: bool = False):
+                             use_physics: bool = False, mesh=None, member_axis: str = "ens",
+                             data_axis: Optional[str] = None):
     """(state, batch, generators) -> (state, metrics): one update of ALL
     members in one pass. `batch` is shared (tensors, unstacked);
     `generators` are one CPU generator per member, so that members draw
     their own physics-term intervals. Metrics are (K,) each: the loss
     components, 'loss', 'grad_norm' (all leaves) and 'update_ok' (a member
-    whose loss or gradient norm is not finite skips its update)."""
+    whose loss or gradient norm is not finite skips its update).
+
+    mesh: the members are sharded over its dim `member_axis`: each rank's
+    state holds its K / size members (`shard_batch(mesh, stacked,
+    member_axis)` before `init_ensemble_state`) and `generators` theirs;
+    the metrics are gathered over the dim in rank order, (K,) on every rank.
+    No traffic crosses `member_axis` during the update. data_axis: a 2D
+    (ens, data) mesh's batch dim; the batch is sharded over it (a plain dict
+    here by `shard_batch`), each member's loss is its shard's share of the
+    whole batch's (`ensemble_loss(shards=)`) and the gradients are summed
+    over the dim before the per-member clip and the non-finite skip."""
 
     def step(state: EnsembleState, batch: Mapping[str, torch.Tensor], generators):
+        shards = None
+        if mesh is not None and data_axis is not None:
+            if not isinstance(batch, ShardedBatch):
+                batch = shard_batch(mesh, batch, data_axis)
+            if batch.axis == data_axis:
+                shards = DataShards(mesh, data_axis)
         leaves = list(_leaves(state.params))
         losses, comps = ensemble_loss(state.params, batch, generators, config,
                                       lambda1=lambda1, lambda2=lambda2,
-                                      use_physics_loss=use_physics)
+                                      use_physics_loss=use_physics, shards=shards)
         grads = torch.autograd.grad(torch.sum(losses), [t for _, _, t in leaves],
                                     allow_unused=True)
         tree: Params = {}
         for (g, n, t), gr in zip(leaves, grads):
             tree.setdefault(g, {})[n] = torch.zeros_like(t) if gr is None else gr
         with torch.no_grad():
+            metrics = {k: v.detach() for k, v in comps.items()}
+            metrics["loss"] = losses.detach()
+            if shards is not None:
+                flat = [x for grp in tree.values() for x in grp.values()]
+                for x, y in zip(flat, all_reduce_tensors(mesh, data_axis, flat)):
+                    x.copy_(y)
+                share = batch["initial_state"].shape[0] / batch.global_size
+                metrics["solver_success"] = metrics["solver_success"] * share
+                keys = sorted(metrics)
+                summed = all_reduce_sum(mesh, data_axis, torch.stack([metrics[k] for k in keys]))
+                metrics = dict(zip(keys, summed))
             gnorm = torch.sqrt(sum(_member_sum(x * x) for grp in tree.values()
                                    for x in grp.values()))
-            ok = torch.isfinite(losses.detach()) & torch.isfinite(gnorm)
+            ok = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
         optimizer.update(state.params, tree, state.opt_state, ok)
         state.step = state.step + 1
-        metrics = {k: v.detach() for k, v in comps.items()}
-        metrics.update(loss=losses.detach(), grad_norm=gnorm, update_ok=ok)
+        metrics.update(grad_norm=gnorm, update_ok=ok)
+        if mesh is not None:
+            metrics = {k: all_gather_cat(mesh, member_axis, v) for k, v in metrics.items()}
         return state, metrics
 
     return step

@@ -380,7 +380,10 @@ def test_route_selection_is_logged(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("fault", ["no_compiler", "bad_flag"])
-def test_a_failed_build_raises(fault, tmp_path, monkeypatch):
+def test_a_failed_build_raises(fault, tmp_path, monkeypatch, caplog):
+    """The build raises with the compiler's message; create_data_arrays then
+    takes the csv route with a warning, as JAX's falls back to pandas
+    (hybrid_ode_tpu/data/dataset.py:143-150)."""
     monkeypatch.setattr(tnative, "_BUILD_DIR", tmp_path / "build")
     if fault == "no_compiler":
         monkeypatch.setattr(tnative, "CXX", "no-such-compiler-x")
@@ -389,8 +392,31 @@ def test_a_failed_build_raises(fault, tmp_path, monkeypatch):
         monkeypatch.setattr(tnative, "CXX_FLAGS", tnative.CXX_FLAGS + ("-fno-such-flag-x",))
         match = "no-such-flag-x"
     with pytest.raises(RuntimeError, match=match):
-        tdata.create_data_arrays(DATA, 61, 30)
+        tnative.build_library()
+    assert not tnative.native_available()
+    with caplog.at_level(logging.WARNING, logger="hybrid_ode_torch.data"):
+        ds = tdata.create_data_arrays(DATA, 61, 30)
+    assert tdata.last_route == "csv"
+    warned = [r for r in caplog.records if r.levelno == logging.WARNING
+              and "native loader unavailable" in r.getMessage()]
+    assert len(warned) == 1 and match.strip("'") in warned[0].getMessage()
+    _fields_equal(tdata.create_data_arrays(DATA, 61, 30, use_native=False), ds)
+    _fields_equal(jdata.create_data_arrays(DATA, 61, 30, use_native=False), ds)
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_parse_csv_matches_jax(native_lib, tmp_path, monkeypatch):
+    """native_available / parse_csv against JAX's (data/native_loader.py:63-80)."""
+    monkeypatch.setattr(jnative, "_LIB_PATHS", [native_lib])
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert tnative.native_available() and jnative.native_available()
+    for path in (DATA, _nan_copy(tmp_path)):
+        arr, names = tnative.parse_csv(path)
+        ref, ref_names = jnative.parse_csv(path)
+        assert names == ref_names and arr.dtype == ref.dtype == np.float64
+        np.testing.assert_array_equal(arr, ref)
+    with pytest.raises(OSError):
+        tnative.parse_csv(str(tmp_path / "missing.csv"))
 
 
 # ---------------------------------------------------------------------------

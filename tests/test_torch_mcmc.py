@@ -453,11 +453,30 @@ def test_what_the_jax_package_rejects_the_port_rejects(case, monkeypatch):
 
 
 def test_chain_sharding_names_its_roadmap_item():
+    """Chain sharding (ROADMAP Queue A 11) is ported: on a world of one the
+    sharded samplers equal the unsharded ones draw for draw (worlds of 2:
+    tests/test_torch_parallel_ensemble_nuts.py)."""
+    from hybrid_ode_torch.parallel import distributed
+    from hybrid_ode_torch.parallel.mesh import make_mesh
+
     p, batch = _params(), _batch()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
-        tmcmc.run_nuts(params_from_numpy(p, "cpu"), batch, _tcfg(FAST), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
-        tmcmc.nuts_sample(lambda q: -q.sum(-1), torch.zeros(2, 2), mesh=object())
+    mesh = make_mesh(device="cpu")
+    try:
+        kw = dict(num_samples=2, num_warmup=12, max_depth=3)
+        for sharded in (False, True):
+            extra = {"mesh": mesh} if sharded else {}
+            out = tmcmc.nuts_sample(lambda q: -0.5 * (q ** 2).sum(-1), torch.zeros(2, 2),
+                                    torch.Generator().manual_seed(0), **kw, **extra)
+            res = tmcmc.run_nuts(params_from_numpy(p, "cpu"), batch, _tcfg(FAST),
+                                 torch.Generator().manual_seed(1), n_chains=2, **kw, **extra)
+            if sharded:
+                for a, b in ((ref_out, out), (ref_res, res)):
+                    assert sorted(a) == sorted(b)
+                    for k in a:
+                        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            ref_out, ref_res = out, res
+    finally:
+        distributed.shutdown()
 
 
 # ---------------------------------------------------------------------------
