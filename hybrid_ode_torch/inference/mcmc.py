@@ -31,6 +31,13 @@ Port of `hybrid_ode_tpu/inference/mcmc.py`:
     its block of the chains on the same draws the unsharded run makes; the
     tree loop's active count and the warmup's Welford sums are all-reduced,
     and the results gathered in chain order.
+  * Under a profiler, a transition is a `hode.nuts.transition` span
+    (attributes `iterations`, the loop's leapfrog iterations; `chains`; and
+    `chain_leapfrogs`, the leapfrogs summed over chains), each batched
+    log-posterior gradient a `hode.nuts.grad` span, each read of the
+    active count a `hode.sync.nuts` span, and the copy of the noise scale to
+    the card, which waits for the forward kernel, a `hode.sync.copy` span
+    (`utils/profiling.py`).
 
 Diagnostics (split R-hat, bulk / tail ESS on rank-normalised draws) and
 persistence (an h5py NetCDF4 file, else npz + json) are numpy, as in the
@@ -49,6 +56,7 @@ from hybrid_ode_torch.data.dataset import batch_to_tensors
 from hybrid_ode_torch.models.bayes import forward_samples
 from hybrid_ode_torch.models.hybrid import controls_from_batch, with_context
 from hybrid_ode_torch.parallel.mesh import DataShards, all_gather_cat, axis_size, local_slice
+from hybrid_ode_torch.utils.profiling import recording, set_attr, span
 
 logger = logging.getLogger("hybrid_ode_torch.mcmc")
 
@@ -78,8 +86,9 @@ class _LFState(NamedTuple):
 def _logp_and_grad(logp_and_grad: LogpAndGrad, q: torch.Tensor):
     global grad_evals
     grad_evals += 1
-    logp, grad = logp_and_grad(q)
-    return logp.detach(), grad.detach()
+    with span("hode.nuts.grad"):
+        logp, grad = logp_and_grad(q)
+        return logp.detach(), grad.detach()
 
 
 def _leapfrog(logp_and_grad: LogpAndGrad, state: _LFState, eps: torch.Tensor,
@@ -153,6 +162,13 @@ def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.T
     the active count, at the loop's host synchronisation), so that every
     rank draws as many iterations as the unsharded run; a rank with no
     active chain of its own only draws."""
+    with span("hode.nuts.transition", chains=q0.shape[0]):
+        return _tree_loop(logp_and_grad, q0, draws, eps, inv_mass, max_depth, chains)
+
+
+def _tree_loop(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.Tensor,
+               inv_mass: torch.Tensor, max_depth: int, chains: Optional["_ChainShard"]):
+    """The body of `_nuts_step`."""
     global host_syncs, transitions
     transitions += 1
     C, dim = q0.shape
@@ -174,10 +190,13 @@ def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.T
              p_ck=torch.zeros((C, max_ck, dim), dtype=dtype, device=dev), sub_prop=q0,
              sub_log_w=torch.full((C,), -torch.inf, dtype=dtype, device=dev),
              sub_turning=false, sub_div=false, done=false)
+    iterations = 0
     while True:
         active = ~c["done"] & (c["depth"] < max_depth)
         host_syncs += 1
-        n_active = int(active.sum())
+        count = active.sum()
+        with span("hode.sync.nuts"):
+            n_active = int(count)
         if chains is not None:
             if chains.total(n_active) == 0:
                 break
@@ -186,6 +205,7 @@ def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.T
         dir_bit, u_take, u_merge = (x.to(dev) for x in draws.iteration(active))
         if n_active == 0:
             continue
+        iterations += 1
         # doubling start: sample a direction, reset the subtree
         starting = c["pos"] == 0
         direction = torch.where(starting, torch.where(dir_bit, 1.0, -1.0).to(dtype),
@@ -254,6 +274,8 @@ def _nuts_step(logp_and_grad: LogpAndGrad, q0: torch.Tensor, draws, eps: torch.T
             done=c["done"] | div_new | sub_turning_new | (finishing & (discard | turning_total)),
         )
         c = new if n_active == C else {k: _where(active, v, c[k]) for k, v in new.items()}
+    if recording():
+        set_attr(iterations=iterations, chain_leapfrogs=c["n_lf"].sum())
     accept_stat = c["sum_alpha"] / torch.clamp(c["n_lf"].to(dtype), min=1.0)
     return c["prop_q"], accept_stat, c["n_lf"], c["diverging"]
 
@@ -481,7 +503,8 @@ def _observation_terms(obs, mask, preds, noise_sigma):
     """Per-chain -0.5 sum(se) - 0.5 n_per_state sum(log 2 pi sigma^2) of
     predictions (C, B, T, n)."""
     n_factor = obs.shape[-1]
-    sigma_v = torch.as_tensor(noise_sigma, dtype=preds.dtype, device=preds.device)
+    with span("hode.sync.copy"):  # a host value to the card waits for its queue
+        sigma_v = torch.as_tensor(noise_sigma, dtype=preds.dtype, device=preds.device)
     sigma_v = sigma_v.expand((n_factor,))
     se = ((obs - preds) / sigma_v) ** 2
     if mask is not None:

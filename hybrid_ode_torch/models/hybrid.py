@@ -13,6 +13,9 @@ JAX pytree's layout, so JAX checkpoints load as they are
 Batching is written out, not vmapped: `hybrid_field` takes states (..., 6)
 with per-sample times (...), and control signals (..., T) on per-sample
 grids; 'context' signals are (..., C).
+
+Under a profiler the context encoder is a `hode.forward.encode` span and
+the fused kernel's dispatch a `hode.forward.fused` span.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from hybrid_ode_torch.dynamics.residual import (
 )
 from hybrid_ode_torch.solvers.api import odeint
 from hybrid_ode_torch.utils.device import resolve_device
+from hybrid_ode_torch.utils.profiling import span
 
 STATE_NAMES = ("Glucose", "Insulin", "Glucagon", "GLP1", "GE", "FFA")
 
@@ -233,7 +237,8 @@ def batched_forward(params: Mapping[str, Any], y0: torch.Tensor, ts: torch.Tenso
     if ts.ndim == 1:
         ts = ts[None, :].expand(y0.shape[0], ts.shape[0])
     if config.use_pallas and not solver_overrides:
-        return _fused_forward(params, y0, ts, controls, config)
+        with span("hode.forward.fused"):
+            return _fused_forward(params, y0, ts, controls, config)
     if solver_overrides.get("mode", config.mode) == "sync":
         # batch-synchronised adaptive stepping: one shared controller for the
         # batch, two-pass gradients on the accepted mesh (solvers/sync.py)
@@ -333,8 +338,9 @@ def with_context(params: Mapping[str, Any], batch: Mapping[str, Any],
     """Inject the encoded subject context into the controls."""
     if config.context_points <= 0 or "enc" not in params:
         return controls
-    ctx = encode_context(params["enc"], batch["observations"], batch["time_points"],
-                         config.context_points, config.activation)
+    with span("hode.forward.encode"):
+        ctx = encode_context(params["enc"], batch["observations"], batch["time_points"],
+                             config.context_points, config.activation)
     if controls is None:
         controls = Controls(ts=batch["time_points"], signals={})
     return Controls(ts=controls.ts, signals=dict(controls.signals, context=ctx))

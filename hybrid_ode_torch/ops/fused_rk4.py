@@ -58,6 +58,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from hybrid_ode_torch.utils.profiling import span
+
 #: mech-param packing order for the (32,) parameter row
 PARAM_ORDER = (
     "a_GI", "k_I", "rho", "G_b", "I_b", "E_max", "EC_50", "Glu_b",
@@ -618,8 +620,10 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 def _cidx(ctx_param_idx, dev):
-    return (torch.tensor(list(ctx_param_idx), dtype=torch.int32, device=dev)
-            if ctx_param_idx else None)
+    if not ctx_param_idx:
+        return None
+    with span("hode.sync.copy"):  # from host memory: the copy waits for the card's queue
+        return torch.tensor(list(ctx_param_idx), dtype=torch.int32, device=dev)
 
 
 def _kernel_weights(pw: PackedWeights, mlp_dtype: str, transposed: bool = False) -> torch.Tensor:

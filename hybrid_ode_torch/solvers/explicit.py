@@ -14,6 +14,12 @@ control flow. The field receives per-sample times (...).
   end or taken the budget. Testing that costs one device-to-host
   synchronisation per trial step (counted in `host_syncs`).
 
+Under a profiler, a solve is a `hode.solve` span (attributes `trial_steps`,
+the loop's trial steps over all intervals; `lanes`, the samples; and
+`live_steps`, the trial steps of samples not yet done, summed over samples),
+each batched field evaluation a `hode.solve.field` span, and each host read
+of the flags a `hode.sync.solver` span (`utils/profiling.py`).
+
 The controller's decisions are detached: the solution depends on them only
 through discretisation error (kept below tolerance), and differentiating
 err^(-1/(q+1)) overflows f32 near err=0.
@@ -27,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from hybrid_ode_torch.solvers.tableaus import ERKTableau
+from hybrid_ode_torch.utils.profiling import recording, set_attr, span
 
 # Controller constants (Hairer's recommended defaults).
 SAFETY = 0.9
@@ -48,7 +55,20 @@ def host_flags(*flags: torch.Tensor) -> List[bool]:
     """Read device booleans on the host in one synchronisation."""
     global host_syncs
     host_syncs += 1
-    return [bool(v) for v in torch.stack([f.reshape(()) for f in flags]).tolist()]
+    stacked = torch.stack([f.reshape(()) for f in flags])
+    with span("hode.sync.solver"):
+        values = stacked.tolist()
+    return [bool(v) for v in values]
+
+
+def field_spans(f: Callable) -> Callable:
+    """The field f with each call timed as a `hode.solve.field` span."""
+
+    def field(t, y, args):
+        with span("hode.solve.field"):
+            return f(t, y, args)
+
+    return field
 
 
 def _effective_tols(rtol: float, atol: float, dtype: torch.dtype) -> Tuple[float, float]:
@@ -164,15 +184,18 @@ def _interval(step, t0, t1, y0, fy0, h0, args, max_steps, error_order, stop_earl
     per sample; a sample that has reached t1 is held fixed. Scan mode runs
     all of them (reverse-mode differentiable, no host sync); while mode
     (stop_early) stops once every sample is done, testing that on the host
-    before each trial step. The two give the same result."""
+    before each trial step. The two give the same result. Also returns the
+    number of trial steps taken."""
     dtype = y0.dtype
     t, y, fy, h = t0, y0, fy0, h0
     done = torch.zeros(t0.shape, dtype=torch.bool, device=y0.device)
     nacc = torch.zeros(t0.shape, dtype=torch.int32, device=y0.device)
     nrej = torch.zeros_like(nacc)
+    trials = 0
     for _ in range(max_steps):
         if stop_early and not host_flags((~done).any())[0]:
             break
+        trials += 1
         remaining = t1 - t
         at_end = h >= remaining
         h_eff = torch.minimum(h, remaining)
@@ -190,7 +213,7 @@ def _interval(step, t0, t1, y0, fy0, h0, args, max_steps, error_order, stop_earl
         nacc = nacc + move.to(torch.int32)
         nrej = nrej + (~accept & ~done).to(torch.int32)
         done = done | (move & at_end)
-    return y, fy, h, done, nacc, nrej
+    return y, fy, h, done, nacc, nrej, trials
 
 
 def _grid(y0: torch.Tensor, ts) -> torch.Tensor:
@@ -236,21 +259,29 @@ def odeint_adaptive(f: Callable, y0: torch.Tensor, ts, args: Any, step: Callable
                     return_stats: bool):
     """The one-step drivers' shared loop: `step(t, y, fy, h, args) -> (y1,
     f1, err_norm)` (an explicit RK step or a Radau step) over every output
-    interval with `_interval`, from the automatic initial step."""
+    interval with `_interval`, from the automatic initial step; one
+    `hode.solve` span."""
     if mode not in ("scan", "while"):
         raise ValueError(f"unknown mode: {mode!r}")
-    ts = _grid(y0, ts)
-    f0 = f(ts[..., 0], y0, args)
-    h = initial_step_size(f, ts[..., 0], y0, f0, args, error_order, rtol_e, atol_e)
+    with span("hode.solve", lanes=y0.numel() // y0.shape[-1]):
+        ts = _grid(y0, ts)
+        f0 = f(ts[..., 0], y0, args)
+        h = initial_step_size(f, ts[..., 0], y0, f0, args, error_order, rtol_e, atol_e)
+        trials = 0
 
-    def interval(t0, t1, y, fy, h):
-        y1, f1, h1, done, nacc, nrej = _interval(step, t0, t1, y, fy, h, args,
-                                                 max_steps_per_interval, error_order,
-                                                 stop_early=mode == "while")
-        return y1, f1, h1, y1, done, nacc, nrej
+        def interval(t0, t1, y, fy, h):
+            nonlocal trials
+            y1, f1, h1, done, nacc, nrej, k = _interval(step, t0, t1, y, fy, h, args,
+                                                        max_steps_per_interval, error_order,
+                                                        stop_early=mode == "while")
+            trials += k
+            return y1, f1, h1, y1, done, nacc, nrej
 
-    out = _intervals(interval, ts, (y0, f0, h), mode, checkpoint_intervals)
-    return _finish(y0, *out, return_stats)
+        out = _intervals(interval, ts, (y0, f0, h), mode, checkpoint_intervals)
+        if recording():
+            _, _, naccs, nrejs = out
+            set_attr(trial_steps=trials, live_steps=torch.stack(naccs + nrejs).sum())
+        return _finish(y0, *out, return_stats)
 
 
 def odeint_erk(
@@ -274,6 +305,7 @@ def odeint_erk(
     Returns ys (..., T, n) with ys[..., 0, :] = y0, and with return_stats
     per-sample StepStats of shape (...)."""
     rtol_e, atol_e = _effective_tols(rtol, atol, y0.dtype)
+    f = field_spans(f)
     step = make_erk_step(f, tab, rtol_e, atol_e, norm_weights)
     return odeint_adaptive(f, y0, ts, args, step, tab.error_order, rtol_e, atol_e, mode,
                            max_steps_per_interval, checkpoint_intervals, return_stats)

@@ -176,6 +176,7 @@ def odeint_radau(
     """Radau IIA(5) over the output grid; the driver contract of
     `explicit.odeint_erk` (y0 (..., n), ts (T,) or (..., T))."""
     rtol_e, atol_e = _exp._effective_tols(rtol, atol, y0.dtype)
+    f = _exp.field_spans(f)
     return _exp.odeint_adaptive(f, y0, ts, args, make_radau_step(f, rtol_e, atol_e), 3, rtol_e,
                                 atol_e, mode, max_steps_per_interval, checkpoint_intervals,
                                 return_stats)

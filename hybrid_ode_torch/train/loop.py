@@ -12,6 +12,9 @@ holds the parameters. Optimizer parity with the JAX package's optax chain:
   * frozen groups get no update and no Adam moments: 'norm' always, 'ode'
     unless `train_ode_params` is True or names the parameter;
   * the logged grad_norm covers all gradients.
+Under a profiler an update is a `hode.train.step` span with children
+`hode.train.loss`, `.backward`, `.clip` (its host read of the norm a
+`hode.sync.clip` span) and `.adam` (Adam and the schedule).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from hybrid_ode_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from hybrid_ode_torch.utils.convert import optax_state_to_port
 from hybrid_ode_torch.utils.device import resolve_device
 from hybrid_ode_torch.utils.logging import MetricsLogger
+from hybrid_ode_torch.utils.profiling import span
 
 logger = logging.getLogger("hybrid_ode_torch.train")
 
@@ -96,12 +100,16 @@ class Optimizer:
                 t.grad = torch.zeros_like(t)
             grads.append(t.grad)
         if self.gradient_clip > 0 and grads:
-            norm = _global_norm(grads)
-            if not float(norm) < self.gradient_clip:  # as optax: a NaN norm clips too
-                for g in grads:
-                    g.div_(norm).mul_(self.gradient_clip)
-        self._adam.step()
-        self._sched.step()
+            with span("hode.train.clip"):
+                norm = _global_norm(grads)
+                with span("hode.sync.clip"):
+                    below = float(norm) < self.gradient_clip
+                if not below:  # as optax: a NaN norm clips too
+                    for g in grads:
+                        g.div_(norm).mul_(self.gradient_clip)
+        with span("hode.train.adam"):
+            self._adam.step()
+            self._sched.step()
         self.count += 1
 
     def state_tree(self) -> Dict[str, Any]:
@@ -158,17 +166,21 @@ def make_train_step(optimizer: Optimizer, config: HybridConfig, lambda1: float,
     params `optimizer` is bound to."""
 
     def step(state: TrainState, batch: Dict, generator: torch.Generator):
-        leaves = [t for _, _, t in _leaves(state.params)]
-        for t in leaves:
-            t.grad = None
-        loss, comps = hybrid_loss(state.params, batch, generator, config, lambda1=lambda1,
-                                  lambda2=lambda2, use_physics_loss=use_physics)
-        loss.backward()
-        with torch.no_grad():
-            gnorm = _global_norm([t.grad for t in leaves if t.grad is not None])
-        optimizer.step()
-        state.step += 1
-        return state, dict(comps, loss=loss.detach(), grad_norm=gnorm)
+        with span("hode.train.step"):
+            leaves = [t for _, _, t in _leaves(state.params)]
+            for t in leaves:
+                t.grad = None
+            with span("hode.train.loss"):
+                loss, comps = hybrid_loss(state.params, batch, generator, config,
+                                          lambda1=lambda1, lambda2=lambda2,
+                                          use_physics_loss=use_physics)
+            with span("hode.train.backward"):
+                loss.backward()
+            with torch.no_grad():
+                gnorm = _global_norm([t.grad for t in leaves if t.grad is not None])
+            optimizer.step()
+            state.step += 1
+            return state, dict(comps, loss=loss.detach(), grad_norm=gnorm)
 
     return step
 

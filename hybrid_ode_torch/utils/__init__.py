@@ -4,7 +4,7 @@ logging, profiling."""
 from hybrid_ode_torch.utils.config import load_config, default_config, merge_cli_overrides
 from hybrid_ode_torch.utils.checkpoint import save_checkpoint, load_checkpoint
 from hybrid_ode_torch.utils.logging import MetricsLogger
-from hybrid_ode_torch.utils.profiling import Throughput, debug_mode, trace
+from hybrid_ode_torch.utils.profiling import debug_mode, trace
 
 __all__ = [
     "load_config",
@@ -13,7 +13,6 @@ __all__ = [
     "save_checkpoint",
     "load_checkpoint",
     "MetricsLogger",
-    "Throughput",
     "debug_mode",
     "trace",
 ]

@@ -13,7 +13,7 @@ import pytest
 PACKAGES = ["", "data", "dynamics", "evals", "inference", "models", "ops", "parallel",
             "plots", "solvers", "train", "utils"]
 #: JAX names with no counterpart in the port (said in the port's docstrings)
-NO_COUNTERPART = {("ops", "pallas_available")}
+NO_COUNTERPART = {("ops", "pallas_available"), ("utils", "Throughput")}
 ROOT = Path(__file__).resolve().parents[1]
 
 
