@@ -57,6 +57,13 @@ the last line:
                 size each output must be nearer to the bf16 plain version
                 than the f32 kernel's output on the same inputs is; the
                 distance of the bf16 forward from f32 is printed
+  3e. cluster - the cluster route of small batches against the wide route
+                (both forced) at B=32 (the cohort's first 32 windows, T=61)
+                and at B=1 over a day (T=289): the trajectory and every
+                adjoint leaf bitwise equal; both routes' forward and hand
+                adjoint timed (CUDA events), the plain versions once, the
+                bounds at those shapes; the route and cluster size the
+                adjoint's library reports for the recipe's batch
   4. main     - the serving path with every launch count at 0: evaluate the
                 checkpoint (use_pallas) on the seed-42 test split against the
                 JAX package's CPU metrics, then simulate the 8192 cohort with
@@ -206,6 +213,7 @@ last {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -714,7 +722,7 @@ def bwd_inputs(packed, T, substeps, idx=(), mode="mul", mlp_dtype="f32"):
 
 
 def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False, impl="hand",
-                mlp_dtype="f32", limit=None, f64=None):
+                mlp_dtype="f32", limit=None, f64=None, route=None):
     """An adjoint kernel vs its plain version on the forward kernel's
     trajectory; returns (max abs error, plain seconds, kernel leaves, f64
     leaves). `impl` 'hand' is fused_rk4_bwd, anything else fused_rk4_bwd_vjp.
@@ -722,11 +730,14 @@ def compare_bwd(packed, T, substeps, label, idx=(), mode="mul", full=False, impl
     farther from the f64 plain run (`f64`, computed here when not given) than
     the f32 plain is. With mlp_dtype 'bf16' every leaf must also be nearer to
     the plain version than the f32 kernel's on the same inputs is, and `limit`
-    may be inf to leave that as the only rule."""
+    may be inf to leave that as the only rule. `route` forces the hand
+    adjoint's route (a name of fused_rk4.ROUTES; None: the rule's)."""
     traj, gbar = bwd_inputs(packed, T, substeps, idx, mode, mlp_dtype)
     args = (traj, gbar, *packed[1:], substeps, idx, mode, mlp_dtype)
     if impl == "hand":
-        kernel_fn, plain_fn = fused_rk4.fused_rk4_bwd, fused_rk4._bwd_plain
+        kernel_fn = (fused_rk4.fused_rk4_bwd if route is None
+                     else functools.partial(fused_rk4._bwd_cuda, route=route))
+        plain_fn = fused_rk4._bwd_plain
     else:
         kernel_fn = lambda *a: fused_rk4.fused_rk4_bwd_vjp(*a, impl)  # noqa: E731
         plain_fn = lambda *a: fused_rk4._bwd_vjp_plain(*a, impl)  # noqa: E731
@@ -1242,6 +1253,103 @@ def expected_bwd_sizes(B, in_pad, H, L, substeps, tile):
     scratch = stages * tile * ((in_pad + L * H) + (L * H + 8)) + stages * L * mask_words
     partials = in_pad * H + (L - 1) * H * H + H * 8 + L * H + 8
     return -(-B // tile), scratch, partials
+
+
+def expected_cluster_bwd_sizes(B, in_pad, H, L, substeps, tile, cluster):
+    """The hand adjoint's sizes on the cluster route from its formulas: (tile
+    width, clusters, scratch floats per cluster, partials floats per
+    cluster). A tile holds min(tile, B rounded up to 4) samples; per stage a
+    cluster saves the wide route's rows at that width, and each of its CTAs
+    one ReLU-mask word per 1 x 4 thread tile of its ceil(H / cluster) rows
+    and layer."""
+    tw = min(tile, -(-B // 4) * 4)
+    stages = 4 * substeps
+    mask_words = -(-H // cluster) * (tw // 4)
+    scratch = stages * tw * ((in_pad + L * H) + (L * H + 8)) + cluster * stages * L * mask_words
+    partials = in_pad * H + (L - 1) * H * H + H * 8 + L * H + 8
+    return tw, -(-B // tw), scratch, partials
+
+
+def one_day(packed, T=289, hours=24.0):
+    """The cohort's first window at B=1 over a day (online adaptation's shape):
+    its state and context, a 5-minute grid, meals at 2, 7 and 13 h."""
+    y0, ts_t, meal_t, tvns_t, ctx_t, pw, pvec = packed
+    dev = y0.device
+    ts = torch.linspace(0.0, hours, T, device=dev)[:, None]
+    meal = torch.zeros((T, 1), device=dev)
+    meal[(ts[:, 0] - 2.0).abs().argmin()] = meal[(ts[:, 0] - 7.0).abs().argmin()] = 1.0
+    meal[(ts[:, 0] - 13.0).abs().argmin()] = 1.0
+    return (y0[:1].contiguous(), ts.contiguous(), meal, torch.zeros((T, 1), device=dev),
+            None if ctx_t is None else ctx_t[:, :1].contiguous(), pw, pvec)
+
+
+def cluster_phase(packed, nn, n_layers, hidden, smi):
+    """Phase 3e: the cluster route against the wide route, both forced, and
+    both timed, at the recipe's batch and at online adaptation's B=1."""
+    T_cohort = packed[1].shape[0]
+    C = packed[4].shape[0]
+    head = (packed[0][:32].contiguous(), *(x[:, :32].contiguous() for x in packed[1:5]),
+            packed[5], packed[6])
+    out = {}
+    for name, p, reps in (("B32", head, 10), ("B1", one_day(packed), 5)):
+        B, T = p[0].shape[0], p[1].shape[0]
+        gbar = torch.as_tensor(np.random.default_rng(0).normal(size=(T, 6, B)).astype(np.float32),
+                               device=p[0].device)
+        traj, leaves, times = {}, {}, {}
+        for route in fused_rk4.ROUTES:
+            with torch.no_grad():
+                traj[route] = fused_rk4._fwd_cuda(*p, SUBSTEPS, route=route)
+                leaves[route] = bwd_leaves(fused_rk4._bwd_cuda(traj[route], gbar, *p[1:], SUBSTEPS,
+                                                               route=route), p[5])
+                times[route] = (
+                    time_ms(lambda: fused_rk4._fwd_cuda(*p, SUBSTEPS, route=route), 1, reps),
+                    time_ms(lambda: fused_rk4._bwd_cuda(traj[route], gbar, *p[1:], SUBSTEPS,
+                                                        route=route), 1, reps))
+        torch.cuda.synchronize()
+        differ = {n: float((leaves["cluster"][n].double() - leaves["wide"][n].double()).abs().max())
+                  for n in leaves["wide"] if not torch.equal(leaves["cluster"][n],
+                                                             leaves["wide"][n])}
+        same_traj = torch.equal(traj["cluster"], traj["wide"])
+        print(f"cluster (3e) {name} (B={B} T={T}): cluster vs wide route, trajectory "
+              f"{'bitwise equal' if same_traj else 'DIFFERS'}, adjoint leaves "
+              + (f"DIFFER: {differ}" if differ else f"all {len(leaves['wide'])} bitwise equal")
+              + f" {'ok' if same_traj and not differ else 'FAIL'}")
+        if not same_traj or differ:
+            fail(f"the cluster route differs from the wide route at {name}")
+        # the cluster route against the plain versions at phase 3 / 3b's
+        # full-width limits (the adjoint with 3b's f64 escape)
+        label = f"cluster route (3e) {name} (B={B} T={T})"
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            plain = fused_rk4._fwd_plain(*p, SUBSTEPS)
+            torch.cuda.synchronize()
+            plain_fwd = (time.perf_counter() - t0) * 1e3
+        gaps = {"fwd": compare(traj["cluster"], plain, label)}
+        gaps["bwd"], plain_bwd_s, held, _ = compare_bwd(p, T, SUBSTEPS, label, full=True,
+                                                        route="cluster")
+        plain_bwd = plain_bwd_s * 1e3
+        if any(not torch.equal(held[n], leaves["cluster"][n]) for n in held):
+            fail(f"{label}: the adjoint held to the plain version is not the one timed")
+        fwd_ops, bwd_ops = kernel_ops(nn, n_layers, hidden, B, T, SUBSTEPS, C)
+        n_w = p[5].flat.numel()
+        in_bytes = 4 * (3 * T * B + C * B + n_w + 32)
+        fwd_b = bound(fwd_ops, in_bytes + 4 * (B * 6 + T * 6 * B))
+        bwd_b = bound(bwd_ops, in_bytes + 4 * (2 * T * 6 * B + B * 6 + n_w + 17 * B + C * B))
+        out[name] = {"B": B, "T": T, "fwd_ms": {r: t[0] for r, t in times.items()},
+                     "bwd_ms": {r: t[1] for r, t in times.items()},
+                     "plain_ms": {"fwd": plain_fwd, "bwd": plain_bwd}, "plain_max_abs": gaps,
+                     "bound_ms": {"fwd": fwd_b[0], "bwd": bwd_b[0]}}
+        print(f"cluster (3e) ({smi}) {name}: forward wide {times['wide'][0]:.3f} ms, cluster "
+              f"{times['cluster'][0]:.3f} ms (bound {fwd_b[0]:.4f} ms by {fwd_b[1]}, plain "
+              f"{plain_fwd:.1f} ms once); hand adjoint wide {times['wide'][1]:.3f} ms, cluster "
+              f"{times['cluster'][1]:.3f} ms (bound {bwd_b[0]:.4f} ms by {bwd_b[1]}, plain "
+              f"{plain_bwd:.1f} ms once); CUDA events, median of {reps}")
+    got = fused_rk4.bwd_sizes(32, C, packed[5].in_pad, hidden, n_layers, SUBSTEPS)
+    print(f"cluster (3e): the recipe's batch (B=32) takes the {got.route} route, {got.cluster} "
+          f"CTAs a tile of {got.tile}; the cohort (B={COHORT}) the "
+          f"{fused_rk4.bwd_sizes(COHORT, C, packed[5].in_pad, hidden, n_layers, SUBSTEPS).route}")
+    out["route_b32"] = got._asdict()
+    return out
 
 
 def expected_vjp_sizes(B, C, in_pad, H, L, substeps, schedule, tile):
@@ -3082,17 +3190,27 @@ def main():
     report.update(build_s=build_s, ptxas=ptxas)
     tile = fused_rk4.fwd_tile()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    n_shapes = 0
+    n_shapes = n_cluster = 0
     for B in (1, 2, tile - 1, tile + 1, 1000, COHORT, 40000):
         for C, in_pad, H, L, substeps in ((0, 16, 64, 2, 2), (16, 32, 128, 4, 4), (3, 16, 128, 4, 1),
                                           (0, 16, 200, 2, 2), (5, 16, 132, 3, 3), (0, 16, 8, 1, 1)):
-            got = fused_rk4.bwd_sizes(B, C, in_pad, H, L, substeps)
+            # the wide route's sizes, whichever route the rule takes
+            got = fused_rk4._bwd_sizes(B, C, in_pad, H, L, substeps, False, 0, 0)
             tiles, *want = expected_bwd_sizes(B, in_pad, H, L, substeps, got.tile)
             # one block per tile, or every SM's resident blocks when there are more tiles
             grid_ok = got.grid == tiles or (got.grid < tiles and got.grid % sms == 0)
             if got.tile != tile or not grid_ok or [got.scratch, got.partials] != want:
                 fail(f"adjoint sizes for B={B} C={C} in_pad={in_pad} H={H} L={L} substeps="
                      f"{substeps}: library {got}, formula {tiles} tiles, {want}")
+            ruled = fused_rk4.bwd_sizes(B, C, in_pad, H, L, substeps)
+            if ruled.route == "cluster":
+                n_cluster += 1
+                want = expected_cluster_bwd_sizes(B, in_pad, H, L, substeps, tile, ruled.cluster)
+                if [ruled.tile, ruled.grid, ruled.scratch, ruled.partials] != list(want):
+                    fail(f"cluster-route adjoint sizes for B={B} C={C} in_pad={in_pad} H={H} "
+                         f"L={L} substeps={substeps}: library {ruled}, formula {want}")
+            elif ruled != got:
+                fail(f"the rule's wide route at B={B} H={H} reports {ruled}, not {got}")
             n_shapes += 1
             for sched in ("recompute", "chained"):
                 got = fused_rk4.vjp_sizes(B, C, in_pad, H, L, substeps, sched)
@@ -3105,7 +3223,8 @@ def main():
                          f"{want}")
     print(f"sizes: tile {tile}; both adjoint libraries' grid, scratch, partials (and the second "
           f"derivation's shared memory and route, both schedules) equal the formula's on "
-          f"{n_shapes} shapes ({sms} SMs) ok")
+          f"{n_shapes} shapes ({sms} SMs), the cluster route's on the {n_cluster} the rule gives "
+          f"it ok")
 
     # 3. kernel vs plain
     state, meta = load_checkpoint(str(CKPT))
@@ -3227,8 +3346,13 @@ def main():
     report.update(bf16_fwd_kernel_vs_plain=bf16_err, bf16_fwd_vs_f32=bf16_dist,
                   bf16_fwd_f32_kernel_vs_plain=bf16_unrounded)
 
+    # 3e. the cluster route of small batches against the wide route
+    report["cluster"] = cluster_phase(packed, params["nn"], config.nn_layers, config.nn_hidden,
+                                      smi)
+
     # 4. serving path, launch counts from 0
     fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+    fused_rk4.fused_rk4_cluster_launches = 0
     train_ds, val_ds, test_ds = split_dataset(ds, seed=42)
     t0 = time.perf_counter()
     metrics = evaluate_checkpoint(str(CKPT), test_ds, val_ds=val_ds, use_pallas=True,
@@ -3242,7 +3366,8 @@ def main():
     torch.cuda.synchronize()
     launches = fused_rk4.fused_rk4_fwd_launches
     print(f"main path (serving): evaluate_checkpoint {eval_s:.2f} s, cohort batched_forward "
-          f"{tuple(traj.shape)}; fused_rk4_fwd launches={launches}")
+          f"{tuple(traj.shape)}; fused_rk4_fwd launches={launches}, of them on the cluster "
+          f"route {fused_rk4.fused_rk4_cluster_launches}")
     if launches < 1:
         fail("the serving path did not launch the fused RK4 kernel")
     for key, ref in (("rmse", REF_RMSE), ("rmse_glucose", REF_RMSE_GLUCOSE)):
@@ -3268,6 +3393,7 @@ def main():
     cfg = copy.deepcopy(meta["config"])
     cfg["model"]["use_pallas"] = True
     fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
+    fused_rk4.fused_rk4_cluster_launches = 0
     with tempfile.TemporaryDirectory() as ckpt_dir:
         t0 = time.perf_counter()
         res = train_model(cfg, train_ds, val_ds, ckpt_dir, None, params=state["params"],
@@ -3275,12 +3401,14 @@ def main():
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         train_launches = (fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches)
+        train_cluster = fused_rk4.fused_rk4_cluster_launches
         final, final_meta = load_checkpoint(str(Path(ckpt_dir) / "final_model"))
     hist = res.history
     print(f"main path (training): train_model 3 epochs in {train_s:.2f} s, "
           f"{len(hist['step_loss'])} steps; step losses {hist['step_loss']}, grad norms "
           f"{hist['grad_norm']}, val losses {hist['val_loss']}; fused_rk4_fwd launches="
-          f"{train_launches[0]} fused_rk4_bwd launches={train_launches[1]}")
+          f"{train_launches[0]} fused_rk4_bwd launches={train_launches[1]}, of them on the "
+          f"cluster route {train_cluster}")
     if train_launches[1] < 3:
         fail("the training path launched the backward kernel fewer than 3 times")
     if not all(np.isfinite(hist[k]).all() for k in ("step_loss", "grad_norm", "val_loss")):
@@ -3309,7 +3437,8 @@ def main():
     print(f"init_hybrid_params(generator, config) without a device: every tensor on the card; "
           f"train_model from scratch, 1 epoch on the default device: step losses "
           f"{from_scratch.history['step_loss']} ok")
-    report.update(train_history=hist, train_launches=train_launches, train_s=train_s)
+    report.update(train_history=hist, train_launches=train_launches, train_s=train_s,
+                  train_cluster_launches=train_cluster)
 
     # 4c. test-time identification through the fused kernels, launch counts from 0
     state2, meta2 = load_checkpoint(str(CKPT_R2))
@@ -3323,18 +3452,19 @@ def main():
         enc_ctx = encode_context(params2["enc"], id_batch["observations"],
                                  id_batch["time_points"], k_id, config2.activation)
     fused_rk4.fused_rk4_fwd_launches = fused_rk4.fused_rk4_bwd_launches = 0
-    fused_rk4.fused_rk4_bwd_vjp_launches = 0
+    fused_rk4.fused_rk4_bwd_vjp_launches = fused_rk4.fused_rk4_cluster_launches = 0
     t0 = time.perf_counter()
     id_ctx = identify_context(params2, id_batch, config2, steps=ID_STEPS)
     torch.cuda.synchronize()
     id_s = time.perf_counter() - t0
     id_launches = [fused_rk4.fused_rk4_fwd_launches, fused_rk4.fused_rk4_bwd_launches]
+    id_cluster = fused_rk4.fused_rk4_cluster_launches
     misfits = {"encoder": id_misfit(params2, id_batch, config2, enc_ctx, k_id),
                "identified": id_misfit(params2, id_batch, config2, id_ctx, k_id)}
     print(f"main path (identification): identify_context {ID_STEPS} steps on {len(test_ds)} windows "
           f"x {k_id} points in {id_s:.2f} s; mean misfit encoder {misfits['encoder']:.9f} -> "
           f"identified {misfits['identified']:.9f}; fused_rk4_fwd launches={id_launches[0]} "
-          f"fused_rk4_bwd launches={id_launches[1]}")
+          f"fused_rk4_bwd launches={id_launches[1]}, of them on the cluster route {id_cluster}")
     if id_launches[0] < ID_STEPS or id_launches[1] < ID_STEPS:
         fail("identification launched the forward or the hand adjoint kernel fewer than ID_STEPS times")
     if not (torch.isfinite(id_ctx).all() and misfits["identified"] <= misfits["encoder"]):

@@ -73,6 +73,20 @@
 //     registers; its parameters, parameter cotangents, stage-state
 //     cotangents and feature-mode context cotangents in shared memory.
 //
+// Small batches take the cluster route (`fused_rk4_bwd_kernel_cluster`, the
+// caller chooses; fused_rk4_wide.cuh): one tile of min(64, B rounded up to
+// 4) samples on a cluster of 8 CTAs. Phases 1 and 2 split every product, the
+// forward ones and the transposed ones, by output rows, each CTA keeping its
+// slices of both weight copies resident; phase 3 gives each CTA the weight
+// and bias cotangents of its own output columns over the interval's
+// columns, so a cluster needs no partials inside itself and one slice per
+// cluster goes to `sum_rows`, in cluster order. Bias cotangents sum the
+// wide route's column groups (bias_sums) in its order, so every output
+// equals the wide route's bitwise. Between phases, a cluster barrier; ReLU
+// masks stay per CTA in scratch. At B = 32 about 60% of the route's time is
+// phases 1 and 2 (a dependent fmaf chain and an exchange a product, 9 a
+// stage), the rest phase 3 (measured, PERF.md section 6).
+//
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): both
 // operands of every product, forward and transposed, are rounded to bf16 at
 // the load (both weight copies arrive rounded); sums, bias cotangents, masks
@@ -94,42 +108,57 @@ using namespace fused_rk4;
 
 constexpr int OUTER_UNROLL = 2;  // column quads per trip of outer_w's loop (1: 2% slower)
 
-// D[k][n] += sum_col A[k][col] * G[n][col] for k < K, n < N (D row-major
-// (K, N)) and Db[n] += sum_col G[n][col], over the WTILE columns of each of
-// n_stages stages. A and G are global, [stage][rows][WTILE] with rows_a /
-// rows_g rows per stage, and pass through the ring in chunks of cc columns,
-// rows padded to cc + 4 floats so that consecutive rows start four banks
-// apart. A thread owns rows k0 .. k0 + TK of A (the lanes that share them
-// read one address) and rows tn, tn + N / TN, ... of G (consecutive lanes,
-// consecutive rows: no bank conflict), i.e. a TK x TN tile of D in registers
-// for the whole contraction, read as float4 along the columns. Element
-// (k, n) and Db[n] always belong to the same thread, and columns are added
-// in ascending order.
+// Columns per chunk of phase 3's ring on the wide route: the most (64, 32,
+// ...) whose K + N rows, padded by 4, fit a ring buffer of cap floats.
+__host__ __device__ inline int chunk_cols(int K, int N, int cap) {
+  int cc = WTILE;
+  while (cc > 4 && (K + N) * (cc + 4) > cap) cc /= 2;
+  return cc;
+}
+
+// D[k][n] += sum_col A[k][col] * G[n][col] for k < K, n < N (D with rows of
+// ldd floats) and Db[n] += sum_col G[n][col], over the tw columns of each of
+// n_stages stages. A and G are global, [stage][rows][tw] with rows_a /
+// rows_g rows per stage, and pass through the ring in chunks of cc columns
+// (the last of a stage shorter where cc does not divide tw), rows padded to
+// cc + 4 floats so that consecutive rows start four banks apart. A thread owns
+// rows k0 .. k0 + TK of A (the lanes that share them read one address) and
+// rows tn, tn + N / TN, ... of G (consecutive lanes, consecutive rows: no bank
+// conflict), i.e. a TK x TN tile of D in registers for the whole contraction,
+// read as float4 along the columns. Element (k, n) and Db[n] always belong to
+// the same thread, and columns are added in ascending order. Db sums a
+// chunk's columns from 0 before adding them; a null Db leaves the bias
+// cotangents to the caller (the cluster route: bias_sums). TW fixes the
+// tile width at compile time (the wide route's WTILE, which every chunk
+// divides, so every chunk is cc columns wide); 0 takes tw as given (the
+// cluster route).
 // BF16: both operands are read rounded for the product; Db takes G as it is.
-template <bool BF16, int TK, int TN>
-__device__ __forceinline__ void outer_w(float* D, float* Db, const float* A, int rows_a,
+template <bool BF16, int TK, int TN, int TW = 0>
+__device__ __forceinline__ void outer_w(float* D, int ldd, float* Db, const float* A, int rows_a,
                                         const float* G, int rows_g, int n_stages, int K, int N,
-                                        Ring& ring) {
+                                        int tw_in, int cc, Ring& ring) {
+  const int tw = TW ? TW : tw_in;
   const int tid = threadIdx.x;
   const int tiles_n = N / TN, tiles = (K / TK) * tiles_n;
-  int cc = WTILE;  // columns per chunk: the most that fit a ring buffer
-  while (cc > 4 && (K + N) * (cc + 4) > ring.cap) cc /= 2;
-  const int ld = cc + 4, ld4 = ld / 4, c4n = cc / 4;
-  const int per_stage = WTILE / cc, n_chunks = n_stages * per_stage;
+  const int ld = cc + 4, ld4 = ld / 4;
+  const int per_stage = (tw + cc - 1) / cc, n_chunks = n_stages * per_stage;
+  auto quads = [&](int c0) {  // a chunk's width / 4
+    return TW ? cc / 4 : (tw - c0 < cc ? tw - c0 : cc) / 4;
+  };
   auto load = [&](int ch) {
     float* a_dst = ring.incoming();
     float* g_dst = a_dst + K * ld;
     const size_t st = ch / per_stage;
-    const int c0 = (ch % per_stage) * cc;
-    const float* a_src = A + st * rows_a * WTILE + c0;
-    const float* g_src = G + st * rows_g * WTILE + c0;
+    const int c0 = (ch % per_stage) * cc, c4n = quads(c0);
+    const float* a_src = A + st * rows_a * tw + c0;
+    const float* g_src = G + st * rows_g * tw + c0;
     for (int i = tid; i < K * c4n; i += NTHREADS) {
       const int r = i / c4n, q = i % c4n;
-      __pipeline_memcpy_async(a_dst + r * ld + 4 * q, a_src + r * WTILE + 4 * q, 16);
+      __pipeline_memcpy_async(a_dst + r * ld + 4 * q, a_src + r * tw + 4 * q, 16);
     }
     for (int i = tid; i < N * c4n; i += NTHREADS) {
       const int r = i / c4n, q = i % c4n;
-      __pipeline_memcpy_async(g_dst + r * ld + 4 * q, g_src + r * WTILE + 4 * q, 16);
+      __pipeline_memcpy_async(g_dst + r * ld + 4 * q, g_src + r * tw + 4 * q, 16);
     }
     ring.commit();
   };
@@ -147,6 +176,7 @@ __device__ __forceinline__ void outer_w(float* D, float* Db, const float* A, int
       const float* As = ring.arrive();
       const float* Gs = As + K * ld;
       if (ch + 1 < n_chunks) load(ch + 1);
+      const int c0 = (ch % per_stage) * cc, c4n = quads(c0);
       if (active) {
         const float4* a4 = reinterpret_cast<const float4*>(As + k0 * ld);
         const float4* g4 = reinterpret_cast<const float4*>(Gs + tn * ld);
@@ -173,10 +203,10 @@ __device__ __forceinline__ void outer_w(float* D, float* Db, const float* A, int
               for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i][c], gv[j][c], acc[i][j]);
         }
       }
-      if (t0 == 0)
+      if (t0 == 0 && Db)
         for (int nn = tid; nn < N; nn += NTHREADS) {
           float sum = 0.f;
-          for (int c = 0; c < cc; ++c) sum += Gs[nn * ld + c];
+          for (int c = 0; c < 4 * c4n; ++c) sum += Gs[nn * ld + c];
           Db[nn] += sum;
         }
     }
@@ -184,8 +214,50 @@ __device__ __forceinline__ void outer_w(float* D, float* Db, const float* A, int
 #pragma unroll
       for (int i = 0; i < TK; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) D[(size_t)(k0 + i) * N + tn + j * tiles_n] += acc[i][j];
+        for (int j = 0; j < TN; ++j) D[(size_t)(k0 + i) * ldd + tn + j * tiles_n] += acc[i][j];
     }
+  }
+}
+
+// The wide route's: all N columns of D (K, N) row-major, WTILE columns a
+// stage, chunks as wide as the ring holds.
+template <bool BF16, int TK, int TN>
+__device__ __forceinline__ void outer_w(float* D, float* Db, const float* A, int rows_a,
+                                        const float* G, int rows_g, int n_stages, int K, int N,
+                                        Ring& ring) {
+  const int cc = chunk_cols(K, N, ring.cap);
+  outer_w<BF16, TK, TN, WTILE>(D, N, Db, A, rows_a, G, rows_g, n_stages, K, N, WTILE, cc, ring);
+}
+
+// Db[n] += the sum of G[stage][n][c] over each group of bcc columns of a
+// stage (the last of a stage shorter), from 0, groups added in stage and
+// column order: the bias cotangents as the wide route's outer_w sums them
+// (its ring chunks are the groups; its tile's dead lanes add exact zeros). The
+// groups' sums are independent chains, NTHREADS / N of them at once for each
+// of N <= NTHREADS rows; `part` is NTHREADS floats of shared memory. G is
+// global, [stage][rows_g][tw], written by this CTA.
+__device__ __forceinline__ void bias_sums(float* Db, const float* G, int rows_g, int n_stages,
+                                          int N, int tw, int bcc, float* part) {
+  if (N < 1) return;
+  const int tid = threadIdx.x, per_stage = (tw + bcc - 1) / bcc;
+  const int groups = n_stages * per_stage, batch = NTHREADS / N;
+  for (int g0 = 0; g0 < groups; g0 += batch) {
+    const int g = g0 + tid / N, n = tid % N;
+    if (tid < batch * N && g < groups) {
+      const int st = g / per_stage, c0 = (g % per_stage) * bcc;
+      const int c1 = c0 + bcc < tw ? c0 + bcc : tw;
+      const float* row = G + ((size_t)st * rows_g + n) * tw;
+      float sum = 0.f;
+#pragma unroll 8
+      for (int c = c0; c < c1; ++c) sum += __ldcg(row + c);
+      part[tid] = sum;
+    }
+    __syncthreads();
+    if (tid < N) {
+      const int g1 = g0 + batch < groups ? g0 + batch : groups;
+      for (int gg = g0; gg < g1; ++gg) Db[tid] += part[(gg - g0) * N + tid];
+    }
+    __syncthreads();
   }
 }
 
@@ -224,6 +296,38 @@ __device__ __forceinline__ void mech_t(float G, float I, float Glu, float GLP1,
   dP[P_7 * stride] -= gFFA * FFA;
   dP[P_8 * stride] -= gFFA * I * FFA;
   dP[P_9 * stride] += gFFA * G * FFA;
+}
+
+// After stage c's transposed MLP, for one sample (column `col`, rows of `ld`
+// floats): the stage-state cotangent from the features' cotangent dX and the
+// mechanistic transpose at the stage state xs (G, I, Glu, GLP1, FFA). Adds the
+// parameter and feature-mode context cotangents, keeps dY in dYs and makes dk
+// the next stage's field cotangent: dk3 = h/3 go + h dY4, dk2 = h/3 go +
+// h/2 dY3, dk1 = h/6 go + h/2 dY2. Shared by both routes.
+__device__ __forceinline__ void stage_transpose(int c, float h, const float (&go)[NS],
+                                                float (&dk)[NS], const float (&xs)[5],
+                                                const float* Ps, float* dPs, const float* dX,
+                                                float* dCs, float* dYs, int ld, int col, int C,
+                                                int n_cp) {
+  float P[NP], dy[NS];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) P[p] = Ps[p * ld + col];
+  dy[0] = dX[1 * ld + col];
+  dy[1] = dX[2 * ld + col];
+  dy[2] = dX[3 * ld + col];
+  dy[3] = dX[4 * ld + col] + dX[7 * ld + col];
+  dy[4] = dX[5 * ld + col];
+  dy[5] = dX[6 * ld + col];
+  if (n_cp == 0)
+    for (int r = 0; r < C; ++r) dCs[r * ld + col] += dX[(NF + r) * ld + col];
+  mech_t(xs[0], xs[1], xs[2], xs[3], xs[4], dk, P, dy, dPs + col, ld);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    dYs[(c * NS + s) * ld + col] = dy[s];
+    if (c == 3) dk[s] = (h / 3.0f) * go[s] + h * dy[s];
+    else if (c == 2) dk[s] = (h / 3.0f) * go[s] + 0.5f * h * dy[s];
+    else dk[s] = (h / 6.0f) * go[s] + 0.5f * h * dy[s];
+  }
 }
 
 // What a launch needs besides its arguments, from the widths alone.
@@ -381,23 +485,10 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
           const int stage = 4 * j + c;
           float* at = SA + (size_t)stage * rowsA * WTILE;  // this stage's rows
           if (owner) {
-            const float off = c == 0 ? 0.f : (c == 3 ? h : 0.5f * h);
-            const float alpha = c == 0 ? jf : (c == 3 ? jf + 1.0f : jf + 0.5f);
-            const float tt = c == 0 ? t : t + off;
-            float ys[NS], P[NP];
-#pragma unroll
-            for (int s = 0; s < NS; ++s) ys[s] = c == 0 ? y[s] : y[s] + off * k[s];
+            float P[NP];
 #pragma unroll
             for (int p = 0; p < NP; ++p) P[p] = Ps[p * WTILE + tid];
-            const float a = alpha * inv_s;
-            const float m = m_l + (m_r - m_l) * a;
-            const float v = v_l + (v_r - v_l) * a;
-            X[tid] = tt;
-#pragma unroll
-            for (int s = 0; s < NS; ++s) X[(1 + s) * WTILE + tid] = ys[s];
-            X[7 * WTILE + tid] = ys[3];
-            X[8 * WTILE + tid] = v;
-            mech(ys, m, P, k);
+            stage_features(c, jf, t, h, inv_s, y, k, m_l, m_r, v_l, v_r, P, X, WTILE, tid);
           }
           const float* in = X;
           int K = in_pad;
@@ -426,14 +517,7 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
           else fetch_weights<STAGED>(ring, wt_src(L), w_n(L));
           dense_out<BF16>(W, bias0 + L * H, in, R, K);
           __syncthreads();
-          if (owner) {
-            const float wgt = (c == 1 || c == 2) ? 2.0f : 1.0f;
-#pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              k[s] += R[s * WTILE + tid];
-              ksum[s] = c == 0 ? k[s] : ksum[s] + wgt * k[s];
-            }
-          }
+          if (owner) stage_sum(c, R, WTILE, tid, k, ksum);
         }
         if (owner) {
           const float h6 = h / 6.0f;
@@ -500,29 +584,8 @@ fused_rk4_bwd_kernel(const float* __restrict__ traj,  // (T, 6, B)
             }
           }
           __syncthreads();
-          if (owner) {
-            float P[NP], dy[NS];
-#pragma unroll
-            for (int p = 0; p < NP; ++p) P[p] = Ps[p * WTILE + tid];
-            dy[0] = dX[1 * WTILE + tid];
-            dy[1] = dX[2 * WTILE + tid];
-            dy[2] = dX[3 * WTILE + tid];
-            dy[3] = dX[4 * WTILE + tid] + dX[7 * WTILE + tid];
-            dy[4] = dX[5 * WTILE + tid];
-            dy[5] = dX[6 * WTILE + tid];
-            if (n_cp == 0)
-              for (int r = 0; r < C; ++r) dCs[r * WTILE + tid] += dX[(NF + r) * WTILE + tid];
-            mech_t(xs[0], xs[1], xs[2], xs[3], xs[4], dk, P, dy, dPs + tid, WTILE);
-#pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              dYs[(c * NS + s) * WTILE + tid] = dy[s];
-              // next stage's cotangent: dk3 = h/3 go + h dY4, dk2 = h/3 go +
-              // h/2 dY3, dk1 = h/6 go + h/2 dY2
-              if (c == 3) dk[s] = (h / 3.0f) * go[s] + h * dy[s];
-              else if (c == 2) dk[s] = (h / 3.0f) * go[s] + 0.5f * h * dy[s];
-              else dk[s] = (h / 6.0f) * go[s] + 0.5f * h * dy[s];
-            }
-          }
+          if (owner)
+            stage_transpose(c, h, go, dk, xs, Ps, dPs, dX, dCs, dYs, WTILE, tid, C, n_cp);
         }
         if (owner) {
 #pragma unroll
@@ -622,20 +685,409 @@ cudaError_t launch(const Layout& lay, int grid, cudaStream_t stream, const float
                           : ((lay).rt == 8 ? fn<false, 8, false>(__VA_ARGS__)               \
                                            : fn<false, 4, false>(__VA_ARGS__))))
 
+// ---- The cluster route (fused_rk4_wide.cuh): one tile of tw samples on a
+// cluster of CLUSTER CTAs. CTA r owns rows [split_lo(N, r), split_lo(N, r + 1))
+// of every product: of each hidden layer in phase 1, of each layer's input
+// cotangent in phase 2 (H rows, or in_pad for the last transposed product),
+// and the columns N of each layer's weight cotangents in phase 3.
+
+constexpr int CLUSTER_CHUNK = 32;  // columns per chunk of phase 3's ring on the cluster route
+
+// What a cluster-route launch needs besides its arguments.
+struct ClusterLayout {
+  size_t smem;          // bytes of dynamic shared memory per CTA
+  int cap;              // floats of one ring buffer (phase 3's chunks)
+  int wide_cap;         // the wide route's ring buffer, whose chunks order the bias sums; 0: none
+  int mask_words;       // ReLU-mask words per stage and layer of a CTA
+  long long scratch;    // floats of a cluster's scratch slice
+};
+
+// 0 when a CTA's shared memory holds these widths at tile width tw. A CTA
+// keeps, whole launch, its slices of the forward weights ((in_pad + (L-1) H) x
+// ceil(H / CLUSTER)), the last layer whole (H x 8, every CTA computes the
+// 8-row residual), its biases and its slices of the transposed copy ((8 +
+// (L-1) H) x ceil(H / CLUSTER) + H x ceil(in_pad / CLUSTER)); then, tw floats
+// a row, X, Ha, Hb, dX, the residual, P, dP, the stage-state and context
+// cotangents; NTHREADS floats of bias group sums; phase 3's ring of two
+// buffers, (max(in_pad, H) + ceil(H / CLUSTER)) rows of 36 floats each; the
+// exchange's mbarriers. At H = 128, in_pad = 32, C = 16, L = 4: 57 KB of
+// weights, 203 KB in all at tw = 64, 152 KB at tw = 32. Scratch per cluster:
+// the wide route's operand rows at tw columns (each row written by the CTA
+// that owns it) and every CTA's ReLU masks, one word per thread tile.
+int bwd_cluster_layout(int C, int in_pad, int H, int L, int substeps, int tw, ClusterLayout* lay) {
+  const int nh = split_max(H), n0 = split_max(in_pad), nr = split_max(NOUT);
+  const size_t wts = (size_t)(in_pad + (L - 1) * H) * nh + (size_t)H * NOUT +
+                     cluster_bias_floats(H, L) + (size_t)(NOUT + (L - 1) * H) * nh +
+                     (size_t)H * n0;
+  const size_t acts = (size_t)tw * (2 * in_pad + 2 * H + NOUT + 2 * NP + 4 * NS + C);
+  lay->cap = ((in_pad > H ? in_pad : H) + (nh > nr ? nh : nr)) * (CLUSTER_CHUNK + 4);
+  lay->smem = sizeof(float) * (wts + acts + NTHREADS + 2 * (size_t)lay->cap + 2 * Exchange::NBAR);
+  Layout wide;
+  lay->wide_cap = bwd_layout(C, in_pad, H, L, substeps, &wide) ? 0 : wide.cap;
+  lay->mask_words = nh * (tw / 4);
+  const long long stages = 4LL * substeps;
+  lay->scratch = stages * tw * ((in_pad + L * H) + (L * H + NOUT)) +
+                 CLUSTER * stages * L * lay->mask_words;
+  return lay->smem <= (size_t)SMEM_LIMIT ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The wide kernel's function on the cluster's partition. Every CTA holds the
+// tile's per-sample state (thread tid < tw owns sample tile * tw + tid) and
+// computes it alike; CTA 0 writes the per-sample outputs.
+template <bool BF16>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
+fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
+                             const float* __restrict__ gbar,  // (T, 6, B)
+                             const float* __restrict__ ts,    // (T, B)
+                             const float* __restrict__ meal,  // (T, B)
+                             const float* __restrict__ tvns,  // (T, B)
+                             const float* __restrict__ ctx,   // (C, B) or null
+                             const float* __restrict__ wpack, // weights, biases, transposed weights
+                             const float* __restrict__ pvec,  // (32,) PARAM_ORDER
+                             const int* __restrict__ cidx,    // (n_cp,) or null
+                             float* __restrict__ ybar0,       // (B, 6)
+                             float* __restrict__ dp_out,      // (17, B)
+                             float* __restrict__ dctx_out,    // (B, C) or null
+                             float* __restrict__ partials,    // (clusters, n_w)
+                             float* __restrict__ scratch,     // (clusters, scratch_floats)
+                             int B, int T, int C, int in_pad, int H, int n_layers,
+                             int substeps, int n_cp, int abs_mode, int n_w, int tw, int cap,
+                             int wide_cap, int mask_words, long long scratch_floats) {
+  extern __shared__ float4 smem4[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank(), tile = (int)(blockIdx.x / CLUSTER);
+  const int L = n_layers, nh = split_max(H), sqn = tw / 4;
+  const int lo = split_lo(H, rank), nl = split_lo(H, rank + 1) - lo;               // of H rows
+  const int lo0 = split_lo(in_pad, rank), nl0 = split_lo(in_pad, rank + 1) - lo0;  // of in_pad
+  const int loR = split_lo(NOUT, rank), hiR = split_lo(NOUT, rank + 1);           // of NOUT
+  float* Wf = reinterpret_cast<float*>(smem4);     // forward slices, per layer [K][nl]
+  float* WL = Wf + (in_pad + (L - 1) * H) * nh;    // [H][NOUT] the last layer, whole
+  float* Bs = WL + H * NOUT;                       // biases: [L][nh] this CTA's rows, the last 8
+  float* Wt = Bs + cluster_bias_floats(H, L);      // transposed slices, products L .. 1 then 0
+  float* X = Wt + (NOUT + (L - 1) * H) * nh + H * split_max(in_pad);  // [in_pad][tw]
+  float* Ha = X + in_pad * tw;                     // [H][tw]
+  float* Hb = Ha + H * tw;                         // [H][tw]
+  float* dX = Hb + H * tw;                         // [in_pad][tw] the features' cotangent
+  float* R = dX + in_pad * tw;                     // [NOUT][tw] residual / stage cotangent
+  float* Ps = R + NOUT * tw;                       // [NP][tw] effective parameters
+  float* dPs = Ps + NP * tw;                       // [NP][tw] their cotangents
+  float* dYs = dPs + NP * tw;                      // [4][NS][tw] stage-state cotangents
+  float* dCs = dYs + 4 * NS * tw;                  // [C][tw] feature-mode context cotangent
+  float* gsum = dCs + C * tw;                      // [NTHREADS] phase 3's bias group sums
+  Ring ring;
+  ring.init(gsum + NTHREADS, cap);                 // [2][cap], phase 3 only
+  Exchange ex;                                     // mbarriers of Ha, Hb and dX
+  ex.init(reinterpret_cast<unsigned long long*>(gsum + NTHREADS + 2 * cap));
+  auto wf = [&](int l) { return Wf + (l == 0 ? 0 : in_pad + (l - 1) * H) * nh; };
+  // product p's slice: p = L reads [NOUT][nl], p = L-1 .. 1 [H][nl], p = 0 [H][nl0]
+  auto wt = [&](int p) { return Wt + (p == L ? 0 : NOUT + (L - 1 - p) * H) * nh; };
+
+  const int tid = threadIdx.x;
+  const bool owner = tid < tw;
+  const int b = tile * tw + tid;
+  const bool valid = owner && b < B;
+  const int rowsA = in_pad + L * H, rowsG = L * H + NOUT;
+  const int n_stages = 4 * substeps;
+  float* part = partials + (size_t)tile * n_w;
+  float* SA = scratch + (size_t)tile * scratch_floats;                     // [stage][rowsA][tw]
+  float* SG = SA + (size_t)n_stages * rowsA * tw;                          // [stage][rowsG][tw]
+  unsigned* masks = reinterpret_cast<unsigned*>(SG + (size_t)n_stages * rowsG * tw) +
+                    (size_t)rank * n_stages * L * mask_words;
+  const int bias_off = layer_offset(L, in_pad, H) + H * NOUT;
+  const float* bias0 = wpack + bias_off;
+  const float* wt0 = wpack + n_w;
+  const float inv_s = 1.0f / (float)substeps;
+
+  // this CTA's columns of the weight and bias cotangents; its weight slices
+  for (int l = 0; l <= L; ++l) {
+    const int K = l == 0 ? in_pad : H, N = l < L ? H : NOUT;
+    const int n_lo = split_lo(N, rank), nn = split_lo(N, rank + 1) - n_lo;
+    float* D = part + layer_offset(l, in_pad, H);
+    for (int i = tid; i < K * nn; i += NTHREADS) D[(i / nn) * N + n_lo + i % nn] = 0.f;
+    for (int i = tid; i < nn; i += NTHREADS) part[bias_off + l * H + n_lo + i] = 0.f;
+  }
+  for (int l = 0; l < L; ++l)
+    load_slice(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
+  for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[layer_offset(L, in_pad, H) + i];
+  load_biases(Bs, bias0, H, L, lo, nl);
+  for (int p = L; p >= 1; --p)
+    load_slice(wt(p), wt0 + layer_offset(p, in_pad, H), H, p == L ? NOUT : H, lo, nl);
+  load_slice(wt(0), wt0, in_pad, H, lo0, nl0);
+  for (int i = tid; i < in_pad * tw; i += NTHREADS) X[i] = 0.f;
+  for (int i = tid; i < C * tw; i += NTHREADS) dCs[i] = 0.f;
+  __syncthreads();
+
+  float ybar[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) ybar[s] = 0.f;
+  if (owner) {
+    float P[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) P[p] = pvec[p];
+    if (valid) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        for (int r = 0; r < n_cp; ++r)
+          if (cidx[r] == p) {
+            const float c = ctx[r * B + b];
+            P[p] = abs_mode ? c : P[p] * expf(c);
+          }
+      if (n_cp == 0)
+        for (int r = 0; r < C; ++r) X[(NF + r) * tw + tid] = ctx[r * B + b];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) ybar[s] = gbar[((T - 1) * NS + s) * B + b];
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      Ps[p * tw + tid] = P[p];
+      dPs[p * tw + tid] = 0.f;
+    }
+  }
+  cluster.sync();  // every CTA's shared memory is live before the first exchange
+
+  for (int iv = T - 2; iv >= 0; --iv) {
+    float ts_l = 0.f, ts_r = 0.f, m_l = 0.f, m_r = 0.f, v_l = 0.f, v_r = 0.f;
+    float y[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) y[s] = 0.f;
+    if (valid) {
+      ts_l = ts[iv * B + b];
+      ts_r = ts[(iv + 1) * B + b];
+      m_l = meal[iv * B + b];
+      m_r = meal[(iv + 1) * B + b];
+      v_l = tvns[iv * B + b];
+      v_r = tvns[(iv + 1) * B + b];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) y[s] = traj[(iv * NS + s) * B + b];
+    }
+    const float h = (ts_r - ts_l) * inv_s;
+
+    // ---- phase 1: forward pass over the interval, saving every stage ----
+    for (int j = 0; j < substeps; ++j) {
+      const float jf = (float)j;
+      const float t = ts_l + jf * h;
+      float k[NS], ksum[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) k[s] = ksum[s] = 0.f;
+      for (int c = 0; c < 4; ++c) {
+        const int stage = 4 * j + c;
+        float* at = SA + (size_t)stage * rowsA * tw;
+        if (owner) {
+          float P[NP];
+#pragma unroll
+          for (int p = 0; p < NP; ++p) P[p] = Ps[p * tw + tid];
+          stage_features(c, jf, t, h, inv_s, y, k, m_l, m_r, v_l, v_r, P, X, tw, tid);
+        }
+        __syncthreads();
+        for (int e = tid; e < nl0 * sqn; e += NTHREADS)  // this CTA's rows of X
+          reinterpret_cast<float4*>(at)[lo0 * sqn + e] =
+              reinterpret_cast<const float4*>(X)[lo0 * sqn + e];
+        const float* in = X;
+        int K = in_pad;
+        for (int l = 0; l < L; ++l) {
+          float* dst = (l & 1) ? Hb : Ha;
+          const float* bias = Bs + l * nh;
+          float* at_l = at + (in_pad + l * H) * tw;
+          unsigned* mk = masks + (size_t)(stage * L + l) * mask_words;
+          dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
+                           [&](int tt, int n0, int sq, int rows, float (&acc)[1][4], int) {
+                             mk[tt] = bias_relu<1, true>(acc, bias, n0, rows);
+                             store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
+                             store_tile<1>(at_l, sqn, lo + n0, sq, rows, acc);
+                           });
+          ex.publish(dst + lo * tw, l & 1, 4 * nl * tw);
+          ex.wait(l & 1, 4 * (H - nl) * tw);  // the layer's rows are in every CTA; `in` is free
+          in = dst;
+          K = H;
+        }
+        dense_out_tw<BF16>(WL, Bs + L * nh, in, R, K, tw);
+        // with L odd the last layer read Ha, which the next stage's first product fills
+        if (L & 1) cluster_barrier();
+        else __syncthreads();
+        if (owner) stage_sum(c, R, tw, tid, k, ksum);
+      }
+      if (owner) {
+        const float h6 = h / 6.0f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) y[s] = y[s] + h6 * ksum[s];
+      }
+    }
+    cluster_barrier();  // the last layer read the buffer the sweep's first product fills
+
+    // ---- phase 2: reverse sweep, substeps backwards, stages 4, 3, 2, 1 ----
+    for (int j = substeps - 1; j >= 0; --j) {
+      float go[NS], dk[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        go[s] = ybar[s];
+        dk[s] = (h / 6.0f) * go[s];
+      }
+      for (int c = 3; c >= 0; --c) {
+        const int stage = 4 * j + c;
+        const float* at = SA + (size_t)stage * rowsA * tw;
+        float* gt = SG + (size_t)stage * rowsG * tw;
+        float xs[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // the stage state G, I, Glu, GLP1, FFA
+        if (owner) {
+          // rows other CTAs saved: read past L1, which may hold an older interval's
+          xs[0] = __ldcg(at + 1 * tw + tid); xs[1] = __ldcg(at + 2 * tw + tid);
+          xs[2] = __ldcg(at + 3 * tw + tid); xs[3] = __ldcg(at + 4 * tw + tid);
+          xs[4] = __ldcg(at + 6 * tw + tid);
+          float* gr = gt + L * H * tw;
+#pragma unroll
+          for (int s = 0; s < NOUT; ++s) {
+            const float v = s < NS ? dk[s] : 0.f;
+            R[s * tw + tid] = v;
+            if (s >= loR && s < hiR) gr[s * tw + tid] = v;
+          }
+        }
+        __syncthreads();
+        // product p takes the cotangent g of layer p's output to this CTA's rows
+        // of its input's, u = W_p g; masked by layer p - 1's ReLU it is the next g
+        const float* g = R;
+        for (int p = L; p >= 0; --p) {
+          const int Kc = p == L ? NOUT : H;  // contraction: layer p's outputs
+          if (p > 0) {
+            float* gz = ((p - 1) & 1) ? Hb : Ha;
+            float* gt_l = gt + (p - 1) * H * tw;
+            const unsigned* mk = masks + (size_t)(stage * L + p - 1) * mask_words;
+            dense_w<BF16, 1>(wt(p), nl, g, sqn, Kc, nl, [&](int tt) { return mk[tt]; },
+                             [&](int, int n0, int sq, int rows, float (&acc)[1][4],
+                                 unsigned bits) {
+#pragma unroll
+                               for (int jj = 0; jj < 4; ++jj)
+                                 acc[0][jj] *= (bits >> jj) & 1u ? 1.f : 0.f;
+                               store_tile<1>(gz, sqn, lo + n0, sq, rows, acc);
+                               store_tile<1>(gt_l, sqn, lo + n0, sq, rows, acc);
+                             });
+            ex.publish(gz + lo * tw, (p - 1) & 1, 4 * nl * tw);
+            ex.wait((p - 1) & 1, 4 * (H - nl) * tw);
+            g = gz;
+          } else {
+            dense_w<BF16, 1>(wt(0), nl0, g, sqn, Kc, nl0, NoTag(),
+                             [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
+                               store_tile<1>(dX, sqn, lo0 + n0, sq, rows, acc);
+                             });
+            ex.publish(dX + lo0 * tw, 2, 4 * nl0 * tw);
+            ex.wait(2, 4 * (in_pad - nl0) * tw);
+          }
+        }
+        if (owner)
+          stage_transpose(c, h, go, dk, xs, Ps, dPs, dX, dCs, dYs, tw, tid, C, n_cp);
+      }
+      if (owner) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          ybar[s] = go[s] + dYs[(0 * NS + s) * tw + tid] + dYs[(1 * NS + s) * tw + tid] +
+                    dYs[(2 * NS + s) * tw + tid] + dYs[(3 * NS + s) * tw + tid];
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) ybar[s] = ybar[s] + gbar[(iv * NS + s) * B + b];
+    }
+
+    // ---- phase 3: this CTA's columns of the interval's weight and bias cotangents ----
+    cluster_barrier();  // every CTA's saved rows are visible
+    for (int l = 0; l <= L; ++l) {
+      const int K = l == 0 ? in_pad : H, N = l < L ? H : NOUT;
+      const int n_lo = split_lo(N, rank), nn = split_lo(N, rank + 1) - n_lo;
+      float* D = part + layer_offset(l, in_pad, H) + n_lo;
+      float* Db = part + bias_off + l * H + n_lo;
+      const float* a_l = SA + (l == 0 ? 0 : in_pad + (l - 1) * H) * tw;
+      const float* g_l = SG + (l * H + n_lo) * tw;
+      // the bias sums' column groups are the wide route's ring chunks
+      bias_sums(Db, g_l, rowsG, n_stages, nn, tw,
+                wide_cap ? chunk_cols(K, N, wide_cap) : CLUSTER_CHUNK, gsum);
+      auto outer = [&](auto tk, auto tn) {
+        outer_w<BF16, decltype(tk)::value, decltype(tn)::value>(
+            D, N, nullptr, a_l, rowsA, g_l, rowsG, n_stages, K, nn, tw, CLUSTER_CHUNK, ring);
+      };
+      // tiles of 2 x 4 (2 x 1) give a 16-column slice 256 threads; one pass over the chunks
+      if (nn % 4 == 0 && (K / 2) * (nn / 4) <= NTHREADS) outer(Int<2>(), Int<4>());
+      else if (nn % 4 == 0) outer(Int<4>(), Int<4>());
+      else if ((K / 2) * nn <= NTHREADS) outer(Int<2>(), Int<1>());
+      else outer(Int<4>(), Int<1>());
+    }
+    cluster_barrier();  // nobody reads this interval's scratch rows while the next writes them
+  }
+  ex.drain();
+  cluster.sync();  // no CTA leaves while a peer may still write into it
+
+  if (valid && rank == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) ybar0[b * NS + s] = ybar[s];
+    // params mode: closed-form fold of the effective-parameter cotangents
+    for (int r = 0; r < n_cp; ++r) {
+      const int p = cidx[r];
+      const float d = dPs[p * tw + tid];
+      if (abs_mode) {
+        dctx_out[b * C + r] = d;
+        dPs[p * tw + tid] = 0.f;
+      } else {
+        dctx_out[b * C + r] = d * Ps[p * tw + tid];
+        dPs[p * tw + tid] = d * expf(ctx[r * B + b]);
+      }
+    }
+    if (n_cp == 0)
+      for (int r = 0; r < C; ++r) dctx_out[b * C + r] = dCs[r * tw + tid];
+    for (int p = 0; p < NP; ++p) dp_out[p * B + b] = dPs[p * tw + tid];
+  }
+}
+
+template <bool BF16>
+cudaError_t launch_cluster(const ClusterLayout& lay, int clusters, cudaStream_t stream,
+                           const float* traj, const float* gbar, const float* ts,
+                           const float* meal, const float* tvns, const float* ctx,
+                           const float* wpack, const float* pvec, const int* cidx, float* ybar0,
+                           float* dp, float* dctx, float* partials, float* scratch, int B, int T,
+                           int C, int in_pad, int H, int n_layers, int substeps, int n_cp,
+                           int abs_mode, int n_w, int tw) {
+  auto kernel = fused_rk4_bwd_kernel_cluster<BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<clusters * CLUSTER, NTHREADS, lay.smem, stream>>>(
+      traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0, dp, dctx, partials, scratch, B, T,
+      C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w, tw, lay.cap, lay.wide_cap,
+      lay.mask_words, lay.scratch);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// What a caller allocates for a launch on these shapes:
+// What a caller allocates for a launch on these shapes, on the wide route
+// (tw = 0) or on the cluster route with tiles of tw samples:
 //   sizes[0]  samples per tile
-//   sizes[1]  blocks to launch: those that can be resident at once, at most
-//             one per tile
-//   sizes[2]  floats of `scratch` per block
-//   sizes[3]  floats of `partials` per block (the packed weights and biases)
-//   sizes[4]  1 when the weights are staged through shared memory
+//   sizes[1]  slices of `scratch` and `partials`: on the wide route the blocks
+//             to launch, those that can be resident at once, at most one per
+//             tile; on the cluster route one per tile (cluster)
+//   sizes[2]  floats of `scratch` per slice
+//   sizes[3]  floats of `partials` per slice (the packed weights and biases)
+//   sizes[4]  1 when the weights are staged through, or kept in, shared memory
+//   sizes[5]  CTAs per slice: 1, or CLUSTER on the cluster route
+//   sizes[6]  1 when a block's (a CTA's) shared memory holds these widths
+//   sizes[7]  on the cluster route, the clusters the card runs at once
 extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers, int substeps,
-                                  int bf16, long long* sizes) {
+                                  int bf16, int tw, long long* sizes) {
   if (B < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad < 4 || in_pad % 4 != 0 || n_layers < 1 ||
-      substeps < 1)
+      substeps < 1 || tw < 0 || tw > WTILE || tw % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  sizes[3] = layer_offset(n_layers, in_pad, H) + H * NOUT + n_layers * H + NOUT;
+  if (tw) {
+    ClusterLayout cl;
+    sizes[6] = bwd_cluster_layout(C, in_pad, H, n_layers, substeps, tw, &cl) == 0;
+    sizes[0] = tw;
+    sizes[1] = (B + tw - 1) / tw;
+    sizes[2] = cl.scratch;
+    sizes[4] = 1;
+    sizes[5] = CLUSTER;
+    sizes[7] = 0;
+    if (!sizes[6]) return 0;
+    int clusters = 0;
+    const cudaError_t err = max_clusters(fused_rk4_bwd_kernel_cluster<false>, cl.smem, &clusters);
+    sizes[7] = clusters;
+    return (int)err;
+  }
   Layout lay;
   if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;
   int blocks = 0;
@@ -645,33 +1097,53 @@ extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers,
   sizes[0] = WTILE;
   sizes[1] = tiles < blocks ? tiles : blocks;
   sizes[2] = lay.scratch;
-  sizes[3] = layer_offset(n_layers, in_pad, H) + H * NOUT + n_layers * H + NOUT;
   sizes[4] = lay.staged;
+  sizes[5] = 1;
+  sizes[6] = 1;
+  sizes[7] = 0;
   return 0;
 }
 
 // wpack: the packed weights and biases (n_w floats), then every layer's
 // weights once more transposed, (out, in) row-major, in the layers' order.
+// tw: 0 for the wide route, else the cluster route with tiles of tw samples;
+// grid: the slices fused_rk4_bwd_grid reported for it. The caller chooses
+// (hybrid_ode_torch/ops/fused_rk4.py).
 extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* ts,
                              const float* meal, const float* tvns, const float* ctx,
                              const float* wpack, const float* pvec, const int* cidx,
                              float* ybar0, float* dp, float* dctx, float* dflat,
                              float* partials, float* scratch, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps, int n_cp,
-                             int abs_mode, int bf16, int grid, int n_w, void* stream) {
+                             int abs_mode, int bf16, int grid, int n_w, int tw, void* stream) {
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && (!ctx || !dctx)) ||
       (n_cp && !cidx) || grid < 1 ||
       n_w != in_pad * H + (n_layers - 1) * H * H + H * NOUT + n_layers * H + NOUT ||
-      (long long)T * NS * B > 0x7fffffffLL)  // int offsets
+      (long long)T * NS * B > 0x7fffffffLL ||  // int offsets
+      tw < 0 || tw > WTILE || tw % 4 != 0 || (tw && grid != (B + tw - 1) / tw))
     return (int)cudaErrorInvalidValue;
-  Layout lay;
-  if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = FUSED_RK4_BWD_DISPATCH(
-      launch, bf16, lay, lay, grid, s, traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0,
-      dp, dctx, partials, scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w);
+  cudaError_t err;
+  if (tw) {
+    ClusterLayout cl;
+    if (bwd_cluster_layout(C, in_pad, H, n_layers, substeps, tw, &cl))
+      return (int)cudaErrorInvalidValue;
+    auto go = [&](auto fn) {
+      return fn(cl, grid, s, traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx, ybar0, dp, dctx,
+                partials, scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w,
+                tw);
+    };
+    err = bf16 ? go(launch_cluster<true>) : go(launch_cluster<false>);
+  } else {
+    Layout lay;
+    if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;
+    err = FUSED_RK4_BWD_DISPATCH(
+        launch, bf16, lay, lay, grid, s, traj, gbar, ts, meal, tvns, ctx, wpack, pvec, cidx,
+        ybar0, dp, dctx, partials, scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp,
+        abs_mode, n_w);
+  }
   if (err != cudaSuccess) return (int)err;
   sum_rows<<<(n_w + 255) / 256, 256, 0, s>>>(partials, grid, n_w, dflat);
   return (int)cudaGetLastError();

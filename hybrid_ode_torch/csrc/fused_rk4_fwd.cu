@@ -44,6 +44,16 @@
 //     products, rebuild bitwise equal pre-activations.
 //   * Lanes past B are masked (no loads, no stores), not padded.
 //
+// Small batches take the cluster route (`fused_rk4_fwd_kernel_cluster`,
+// fused_rk4_wide.cuh; the caller chooses): a tile of min(64, B rounded up
+// to 4) samples on a cluster of 8 CTAs, each owning 16 of the 128 rows of
+// every hidden layer at H = 128 with its weight slices resident, exchanging
+// its rows after each product. At B = 32 the wide route runs one block on
+// one of 132 SMs (half its lanes dead) and takes as long as at B = 8192;
+// there the bound is not the card's peak but the chain of 128 dependent fmaf
+// a product and its exchange, 5 a stage. The route's outputs equal the wide
+// route's bitwise: every pre-activation is the same k-ascending chain.
+//
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): the
 // products read their activations rounded to bf16 and `wpack` holds weights
 // rounded by the caller; the f32 instantiation is the code without it.
@@ -143,24 +153,8 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
 #pragma unroll
       for (int s = 0; s < NS; ++s) k[s] = ksum[s] = 0.f;
       for (int c = 0; c < 4; ++c) {
-        if (owner) {
-          // stage c: time offset 0, h/2, h/2, h; state from the last k
-          const float off = c == 0 ? 0.f : (c == 3 ? h : 0.5f * h);
-          const float alpha = c == 0 ? jf : (c == 3 ? jf + 1.0f : jf + 0.5f);
-          const float tt = c == 0 ? t : t + off;
-          float ys[NS];
-#pragma unroll
-          for (int s = 0; s < NS; ++s) ys[s] = c == 0 ? y[s] : y[s] + off * k[s];
-          const float a = alpha * inv_s;
-          const float m = m_l + (m_r - m_l) * a;
-          const float v = v_l + (v_r - v_l) * a;
-          X[tid] = tt;
-#pragma unroll
-          for (int s = 0; s < NS; ++s) X[(1 + s) * WTILE + tid] = ys[s];
-          X[7 * WTILE + tid] = ys[3];
-          X[8 * WTILE + tid] = v;
-          mech(ys, m, P, k);
-        }
+        if (owner)
+          stage_features(c, jf, t, h, inv_s, y, k, m_l, m_r, v_l, v_r, P, X, WTILE, tid);
         const float* in = X;
         int K = in_pad;
         for (int l = 0; l < L; ++l) {
@@ -181,14 +175,7 @@ fused_rk4_fwd_kernel(const float* __restrict__ y0,    // (B, 6)
         fetch_weights<STAGED>(ring, w_src(0), w_n(0));  // the next stage's first layer
         dense_out<BF16>(W, bias0 + L * H, in, R, K);
         __syncthreads();
-        if (owner) {
-          const float wgt = (c == 1 || c == 2) ? 2.0f : 1.0f;
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            k[s] += R[s * WTILE + tid];
-            ksum[s] = c == 0 ? k[s] : ksum[s] + wgt * k[s];
-          }
-        }
+        if (owner) stage_sum(c, R, WTILE, tid, k, ksum);
       }
       if (owner) {
         const float h6 = h / 6.0f;
@@ -230,6 +217,163 @@ cudaError_t launch(size_t smem, int grid, cudaStream_t stream, const float* y0,
   return cudaGetLastError();
 }
 
+// ---- The cluster route (fused_rk4_wide.cuh): one tile of tw samples on a
+// cluster of CLUSTER CTAs, each owning H / CLUSTER rows of every hidden layer.
+
+// Bytes of shared memory of a CTA on the cluster route: the slices of the
+// hidden layers it owns, the whole last layer, its biases, then X, Ha, Hb
+// and R at tw floats a row, then the exchange's mbarriers.
+size_t fwd_cluster_smem(int in_pad, int H, int n_layers, int tw) {
+  const size_t wts = (size_t)(in_pad + (n_layers - 1) * H) * split_max(H) + (size_t)H * NOUT +
+                     cluster_bias_floats(H, n_layers);
+  return sizeof(float) * (wts + (size_t)(in_pad + 2 * H + NOUT) * tw + 2 * Exchange::NBAR);
+}
+
+// The wide kernel's function on the cluster's partition. Every CTA holds the
+// tile's per-sample state (thread tid < tw owns sample tile * tw + tid) and
+// computes it alike; CTA 0 writes the trajectory.
+template <bool BF16>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
+fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
+                             const float* __restrict__ ts,    // (T, B)
+                             const float* __restrict__ meal,  // (T, B)
+                             const float* __restrict__ tvns,  // (T, B)
+                             const float* __restrict__ ctx,   // (C, B) or null
+                             const float* __restrict__ wpack, // weights then biases
+                             const float* __restrict__ pvec,  // (32,) PARAM_ORDER
+                             const int* __restrict__ cidx,    // (n_cp,) or null
+                             float* __restrict__ out,         // (T, 6, B)
+                             int B, int T, int C, int in_pad, int H, int n_layers,
+                             int substeps, int n_cp, int abs_mode, int tw) {
+  extern __shared__ float4 smem4[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int L = n_layers, nmax = split_max(H), sqn = tw / 4;
+  const int lo = split_lo(H, rank), nl = split_lo(H, rank + 1) - lo;  // this CTA's rows
+  float* Wf = reinterpret_cast<float*>(smem4);     // per layer [K][nl], K = in_pad, H, ...
+  float* WL = Wf + (in_pad + (L - 1) * H) * nmax;  // [H][NOUT] the last layer, whole
+  float* Bs = WL + H * NOUT;                       // biases: [L][nmax] this CTA's rows, the last 8
+  float* X = Bs + cluster_bias_floats(H, L);       // [in_pad][tw]
+  float* Ha = X + in_pad * tw;                     // [H][tw]
+  float* Hb = Ha + H * tw;                         // [H][tw]
+  float* R = Hb + H * tw;                          // [NOUT][tw]
+  Exchange ex;                                     // mbarriers of Ha and Hb
+  ex.init(reinterpret_cast<unsigned long long*>(R + NOUT * tw));
+  auto wf = [&](int l) { return Wf + (l == 0 ? 0 : in_pad + (l - 1) * H) * nmax; };
+
+  const int tid = threadIdx.x;
+  const bool owner = tid < tw;
+  const int b = (int)(blockIdx.x / CLUSTER) * tw + tid;
+  const bool valid = owner && b < B;
+  const bool writer = valid && rank == 0;
+  const int L_off = layer_offset(L, in_pad, H);
+
+  for (int l = 0; l < L; ++l)
+    load_slice(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
+  for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[L_off + i];
+  load_biases(Bs, wpack + L_off + H * NOUT, H, L, lo, nl);
+  for (int i = tid; i < in_pad * tw; i += NTHREADS) X[i] = 0.f;
+  __syncthreads();
+
+  float P[NP];
+  float y[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) y[s] = 0.f;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) P[p] = pvec[p];
+  if (valid) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      for (int r = 0; r < n_cp; ++r)
+        if (cidx[r] == p) {
+          const float c = ctx[r * B + b];
+          P[p] = abs_mode ? c : P[p] * expf(c);
+        }
+    if (n_cp == 0)
+      for (int r = 0; r < C; ++r) X[(NF + r) * tw + tid] = ctx[r * B + b];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      y[s] = y0[b * NS + s];
+      if (writer) out[s * B + b] = y[s];
+    }
+  }
+  cluster.sync();  // every CTA's shared memory is live before the first exchange
+
+  const float inv_s = 1.0f / (float)substeps;
+
+  for (int i = 0; i + 1 < T; ++i) {
+    float ts_l = 0.f, ts_r = 0.f, m_l = 0.f, m_r = 0.f, v_l = 0.f, v_r = 0.f;
+    if (valid) {
+      ts_l = ts[i * B + b];
+      ts_r = ts[(i + 1) * B + b];
+      m_l = meal[i * B + b];
+      m_r = meal[(i + 1) * B + b];
+      v_l = tvns[i * B + b];
+      v_r = tvns[(i + 1) * B + b];
+    }
+    const float h = (ts_r - ts_l) * inv_s;
+    for (int j = 0; j < substeps; ++j) {
+      const float jf = (float)j;
+      const float t = ts_l + jf * h;
+      float k[NS], ksum[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) k[s] = ksum[s] = 0.f;
+      for (int c = 0; c < 4; ++c) {
+        if (owner)
+          stage_features(c, jf, t, h, inv_s, y, k, m_l, m_r, v_l, v_r, P, X, tw, tid);
+        __syncthreads();
+        const float* in = X;
+        int K = in_pad;
+        for (int l = 0; l < L; ++l) {
+          float* dst = (l & 1) ? Hb : Ha;
+          const float* bias = Bs + l * nmax;
+          dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
+                           [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
+                             bias_relu<1, true>(acc, bias, n0, rows);
+                             store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
+                           });
+          ex.publish(dst + lo * tw, l & 1, 4 * nl * tw);
+          ex.wait(l & 1, 4 * (H - nl) * tw);  // the layer's rows are in every CTA; `in` is free
+          in = dst;
+          K = H;
+        }
+        dense_out_tw<BF16>(WL, Bs + L * nmax, in, R, K, tw);
+        // with L odd the last layer read Ha, which the next stage's first product fills
+        if (L & 1) cluster_barrier();
+        else __syncthreads();
+        if (owner) stage_sum(c, R, tw, tid, k, ksum);
+      }
+      if (owner) {
+        const float h6 = h / 6.0f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) y[s] = y[s] + h6 * ksum[s];
+      }
+    }
+    if (writer) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) out[((i + 1) * NS + s) * B + b] = y[s];
+    }
+  }
+  ex.drain();
+  cluster.sync();  // no CTA leaves while a peer may still write into it
+}
+
+template <bool BF16>
+cudaError_t launch_cluster(size_t smem, int clusters, cudaStream_t stream, const float* y0,
+                           const float* ts, const float* meal, const float* tvns,
+                           const float* ctx, const float* wpack, const float* pvec,
+                           const int* cidx, float* out, int B, int T, int C, int in_pad, int H,
+                           int n_layers, int substeps, int n_cp, int abs_mode, int tw) {
+  auto kernel = fused_rk4_fwd_kernel_cluster<BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<clusters * CLUSTER, NTHREADS, smem, stream>>>(
+      y0, ts, meal, tvns, ctx, wpack, pvec, cidx, out, B, T, C, in_pad, H, n_layers, substeps,
+      n_cp, abs_mode, tw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // tile[0] = samples per block: what a caller needs to cross a tile's edge.
@@ -238,17 +382,50 @@ extern "C" int fused_rk4_fwd_tile(int* tile) {
   return 0;
 }
 
+// The cluster route at tile width tw: sizes[0] = CTAs per tile, sizes[1] = 1
+// when a CTA's shared memory holds these widths, sizes[2] = its bytes,
+// sizes[3] = clusters the card runs at once (0 where they do not fit).
+extern "C" int fused_rk4_fwd_cluster(int in_pad, int H, int n_layers, int tw, long long* sizes) {
+  if (tw < 4 || tw > WTILE || tw % 4 != 0 || H < 4 || H % 4 != 0 || in_pad < 4 ||
+      in_pad % 4 != 0 || n_layers < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_cluster_smem(in_pad, H, n_layers, tw);
+  sizes[0] = CLUSTER;
+  sizes[1] = smem <= (size_t)SMEM_LIMIT;
+  sizes[2] = (long long)smem;
+  sizes[3] = 0;
+  if (!sizes[1]) return 0;
+  int clusters = 0;
+  const cudaError_t err = max_clusters(fused_rk4_fwd_kernel_cluster<false>, smem, &clusters);
+  sizes[3] = clusters;
+  return (int)err;
+}
+
+// tw: 0 for the wide route (64-sample tiles, one block each), else the
+// cluster route with tiles of tw samples (a multiple of 4, at most 64), one
+// cluster each. The caller chooses (hybrid_ode_torch/ops/fused_rk4.py).
 extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal,
                              const float* tvns, const float* ctx,
                              const float* wpack, const float* pvec,
                              const int* cidx, float* out, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps,
-                             int n_cp, int abs_mode, int bf16, void* stream) {
+                             int n_cp, int abs_mode, int bf16, int tw, void* stream) {
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && !ctx) ||
-      (n_cp && !cidx) || (long long)T * NS * B > 0x7fffffffLL)  // int offsets
+      (n_cp && !cidx) || (long long)T * NS * B > 0x7fffffffLL ||  // int offsets
+      tw < 0 || tw > WTILE || tw % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  if (tw) {
+    const size_t smem = fwd_cluster_smem(in_pad, H, n_layers, tw);
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    auto go = [&](auto fn) {
+      return (int)fn(smem, (B + tw - 1) / tw, (cudaStream_t)stream, y0, ts, meal, tvns, ctx,
+                     wpack, pvec, cidx, out, B, T, C, in_pad, H, n_layers, substeps, n_cp,
+                     abs_mode, tw);
+    };
+    return bf16 ? go(launch_cluster<true>) : go(launch_cluster<false>);
+  }
   size_t smem;
   int wcap, staged;
   if (fwd_layout(in_pad, H, n_layers, &smem, &wcap, &staged)) return (int)cudaErrorInvalidValue;

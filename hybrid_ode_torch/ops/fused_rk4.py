@@ -14,7 +14,11 @@ with ctypes:
     six timing probes (`'probe_*'`, partial gradients by design).
 All three work on 64-sample tiles with the MLP weights staged layer by
 layer in shared memory and share the forward products
-(`csrc/fused_rk4_wide.cuh`); each adjoint keeps its own transposes.
+(`csrc/fused_rk4_wide.cuh`); each adjoint keeps its own transposes. The
+forward and the hand adjoint have a second route for small batches: a tile
+of min(64, B rounded up to 4) samples on a cluster of CTAs that split every
+product's output rows and keep their weight slices in shared memory
+(`_cluster_route` says when; the results equal the wide route's bitwise).
 Every tile, grid and buffer size comes from the libraries (`fwd_tile`,
 `bwd_sizes`, `vjp_sizes`): this module holds no copy of a kernel constant.
 Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`,
@@ -73,6 +77,8 @@ N_OUT = 8       # last layer's output rows (6 states + 2 zero rows)
 fused_rk4_fwd_launches = 0
 fused_rk4_bwd_launches = 0
 fused_rk4_bwd_vjp_launches = 0
+#: of the forward and hand-adjoint launches, those that took the cluster route
+fused_rk4_cluster_launches = 0
 
 MLP_DTYPES = ("f32", "bf16")
 #: bwd_impl of the second-derivation adjoint -> (schedule, differentiates the
@@ -88,6 +94,8 @@ VJP_IMPLS = {
     "probe_fwd2": ("chained", False, False, "both", 2),
 }
 BWD_IMPLS = ("hand", *VJP_IMPLS)
+#: partitions of a tile the forward and the hand adjoint can launch on
+ROUTES = ("wide", "cluster")
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -568,18 +576,21 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
 def _load_libraries(defines: Tuple[str, ...]) -> Dict[str, ctypes.CDLL]:
     libs = {stem: ctypes.CDLL(str(so)) for stem, (so, _) in build_library(defines).items()}
     p, i = ctypes.c_void_p, ctypes.c_int
+    sizes = ctypes.POINTER(ctypes.c_longlong)
     fwd = libs["fused_rk4_fwd"].fused_rk4_fwd
-    fwd.argtypes = [p] * 9 + [i] * 10 + [p]
+    fwd.argtypes = [p] * 9 + [i] * 11 + [p]
     fwd.restype = i
     libs["fused_rk4_fwd"].fused_rk4_fwd_tile.argtypes = [ctypes.POINTER(i)]
     libs["fused_rk4_fwd"].fused_rk4_fwd_tile.restype = i
+    libs["fused_rk4_fwd"].fused_rk4_fwd_cluster.argtypes = [i] * 4 + [sizes]
+    libs["fused_rk4_fwd"].fused_rk4_fwd_cluster.restype = i
     bwd_lib = libs["fused_rk4_bwd"]
-    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 8 + [sizes]
     bwd_lib.fused_rk4_bwd_grid.restype = i
-    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 12 + [p]
+    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 13 + [p]
     bwd_lib.fused_rk4_bwd.restype = i
     vjp_lib = libs["fused_rk4_bwd_vjp"]
-    vjp_lib.fused_rk4_bwd_vjp_sizes.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    vjp_lib.fused_rk4_bwd_vjp_sizes.argtypes = [i] * 8 + [sizes]
     vjp_lib.fused_rk4_bwd_vjp_sizes.restype = i
     vjp_lib.fused_rk4_bwd_vjp.argtypes = [p] * 17 + [i] * 15 + [p]
     vjp_lib.fused_rk4_bwd_vjp.restype = i
@@ -646,11 +657,14 @@ def _kernel_weights(pw: PackedWeights, mlp_dtype: str, transposed: bool = False)
 class BwdSizes(NamedTuple):
     """What the hand adjoint's library reports for a launch (fused_rk4_bwd_grid)."""
 
-    tile: int           # samples per block tile
-    grid: int           # blocks to launch
-    scratch: int        # floats of scratch per block
-    partials: int       # floats of weight-cotangent partials per block
-    staged: bool        # weights staged through shared memory (the fast route)
+    tile: int           # samples per tile
+    grid: int           # slices of scratch and partials: blocks, or clusters on the cluster route
+    scratch: int        # floats of scratch per slice
+    partials: int       # floats of weight-cotangent partials per slice
+    staged: bool        # weights staged through (or kept in) shared memory
+    route: str = "wide"  # a name in ROUTES
+    cluster: int = 1    # CTAs per slice: 1 on the wide route
+    at_once: int = 0    # on the cluster route, the clusters the card runs at once
 
 
 class VjpSizes(NamedTuple):
@@ -665,13 +679,61 @@ class VjpSizes(NamedTuple):
     smem: int           # bytes of shared memory per block
 
 
+@functools.lru_cache(maxsize=None)
 def fwd_tile() -> int:
-    """Samples per block tile of the forward kernel, as its library reports it."""
+    """Samples per block tile of the forward kernel, as its library reports it
+    (a constant of the library, asked once)."""
     tile = ctypes.c_int(0)
     err = _libraries()["fused_rk4_fwd"].fused_rk4_fwd_tile(ctypes.byref(tile))
     if err != 0:
         raise RuntimeError(f"fused_rk4_fwd_tile failed: cudaError {err}")
     return tile.value
+
+
+def _cluster_route(B: int, tile: int, at_once: int) -> bool:
+    """The route rule: the cluster route where the card runs a cluster for
+    each `tile`-sample tile of the wide route at once (`at_once`, which the
+    libraries ask of `cudaOccupancyMaxActiveClusters`: it follows the card's
+    SM count, and its GPCs bound it below SMs / cluster size), so that no
+    tile waits for a second wave and loses to the wide route (one SM per
+    tile); the wide route otherwise. An H100 SXM runs 15 clusters of 8 at
+    once: B <= 960."""
+    return -(-B // tile) <= at_once
+
+
+def _cluster_tile(B: int, tile: int) -> int:
+    """Samples per tile on the cluster route: the wide route's `tile`, or B
+    rounded up to 4 where that is fewer, so that a small batch masks no lane."""
+    return min(tile, _round_up(B, 4))
+
+
+def _route(B: int, tw: int, at_once: int, fits: bool, route: Optional[str]) -> int:
+    """The launch's tile width: 0 for the wide route, `tw` for the cluster
+    route. `route` None applies `_cluster_route` where the widths fit a
+    cluster's CTAs (`fits`); a name of ROUTES forces it (tests and
+    chip_smoke.py)."""
+    if route is None:
+        route = "cluster" if fits and _cluster_route(B, fwd_tile(), at_once) else "wide"
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
+    if route == "cluster" and not fits:
+        raise ValueError("these widths do not fit a CTA of the cluster route")
+    return tw if route == "cluster" else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_cluster(in_pad: int, hidden: int, n_layers: int, tw: int,
+                 index: int) -> Tuple[bool, int]:
+    """(whether a CTA holds these widths, clusters card `index` runs at once)
+    of the forward's cluster route at tile width tw, asked of the library
+    once."""
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(index):
+        err = _libraries()["fused_rk4_fwd"].fused_rk4_fwd_cluster(in_pad, hidden, n_layers, tw,
+                                                                  out)
+    if err != 0:
+        raise RuntimeError(f"fused_rk4_fwd_cluster failed: cudaError {err}")
+    return bool(out[1]), int(out[3])
 
 
 def _card_index(device) -> int:
@@ -683,22 +745,39 @@ def _card_index(device) -> int:
 
 def bwd_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps: int,
               mlp_dtype: str = "f32", device=None) -> BwdSizes:
-    """Tile, grid and per-block buffer sizes of a hand-adjoint launch on these
-    shapes, asked of the library: Python holds no copy of a kernel constant."""
-    return _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, mlp_dtype == "bf16",
-                      _card_index(device))
+    """Route, tile, grid and per-slice buffer sizes of a hand-adjoint launch on
+    these shapes, asked of the library: Python holds no copy of a kernel
+    constant."""
+    return _bwd_route(B, C, in_pad, hidden, n_layers, substeps, mlp_dtype == "bf16",
+                      _card_index(device), None)
+
+
+def _bwd_route(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, index: int,
+               route: Optional[str]) -> BwdSizes:
+    """The hand adjoint's sizes on `route` (None: the rule)."""
+    shape = (B, C, in_pad, hidden, n_layers, substeps, bf16)
+    tw = _cluster_tile(B, fwd_tile())
+    got = _bwd_sizes(*shape, tw, index)
+    tw = _route(B, tw, 0 if got is None else got.at_once, got is not None, route)
+    return _bwd_sizes(*shape, tw, index)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, index: int) -> BwdSizes:
-    """The library's answer for one shape on card `index`, asked once."""
-    out = (ctypes.c_longlong * 5)()
+def _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, tw: int,
+               index: int) -> Optional[BwdSizes]:
+    """The library's answer for one shape and route (tile width tw, 0 for the
+    wide route) on card `index`, asked once; None where the cluster route's
+    CTA cannot hold these widths."""
+    out = (ctypes.c_longlong * 8)()
     with torch.cuda.device(index):
         err = _libraries()["fused_rk4_bwd"].fused_rk4_bwd_grid(
-            B, C, in_pad, hidden, n_layers, substeps, int(bf16), out)
+            B, C, in_pad, hidden, n_layers, substeps, int(bf16), tw, out)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd_grid failed: cudaError {err}")
-    return BwdSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]))
+    if not out[6]:
+        return None
+    return BwdSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]),
+                    ROUTES[bool(tw)], int(out[5]), int(out[7]))
 
 
 def vjp_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps: int,
@@ -735,14 +814,19 @@ def _bwd_workspace(sizes, n_w: int, device) -> Tuple[torch.Tensor, torch.Tensor]
 
 def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
               substeps: int, ctx_param_idx: Sequence[int] = (),
-              ctx_param_mode: str = "mul", mlp_dtype: str = "f32") -> torch.Tensor:
-    """Launch the forward kernel on its inputs: (T, 6, B)."""
-    global fused_rk4_fwd_launches
+              ctx_param_mode: str = "mul", mlp_dtype: str = "f32",
+              route: Optional[str] = None) -> torch.Tensor:
+    """Launch the forward kernel on its inputs: (T, 6, B). `route` forces a
+    name of ROUTES; None takes the rule (`_cluster_route`)."""
+    global fused_rk4_fwd_launches, fused_rk4_cluster_launches
     B = y0.shape[0]
     T = ts_t.shape[0]
     _check("y0", y0, (B, 6))
     C, n_cp = _check_common(T, B, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, ctx_param_idx)
     dev = y0.device
+    tw = _cluster_tile(B, fwd_tile())
+    fits, at_once = _fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw, _card_index(dev))
+    tw = _route(B, tw, at_once, fits, route)
     cidx = _cidx(ctx_param_idx, dev)
     out = torch.empty((T, 6, B), dtype=torch.float32, device=dev)
     weights = _kernel_weights(pw, mlp_dtype)
@@ -752,10 +836,11 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
         err = lib.fused_rk4_fwd(
             _ptr(y0), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t), _ptr(weights),
             _ptr(pvec), _ptr(cidx), _ptr(out), B, T, C, pw.in_pad, pw.hidden, pw.n_layers,
-            substeps, n_cp, int(ctx_param_mode == "abs"), int(mlp_dtype == "bf16"), stream)
+            substeps, n_cp, int(ctx_param_mode == "abs"), int(mlp_dtype == "bf16"), tw, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_fwd launch failed: cudaError {err}")
     fused_rk4_fwd_launches += 1
+    fused_rk4_cluster_launches += bool(tw)
     return out
 
 
@@ -774,14 +859,17 @@ def fused_rk4_fwd(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
 
 def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
               substeps: int, ctx_param_idx: Sequence[int] = (),
-              ctx_param_mode: str = "mul", mlp_dtype: str = "f32"):
-    """Launch the backward kernel; returns what `_bwd_plain` returns.
+              ctx_param_mode: str = "mul", mlp_dtype: str = "f32",
+              route: Optional[str] = None):
+    """Launch the backward kernel; returns what `_bwd_plain` returns. `route`
+    forces a name of ROUTES; None takes the rule (`_cluster_route`).
 
-    Each block accumulates the weight cotangents of the samples it walks
-    into its own slice of `partials`; a second kernel sums the slices in
-    block order, so the result does not depend on scheduling. The library
-    says how many blocks it wants and how much scratch each needs."""
-    global fused_rk4_bwd_launches
+    Each block (each cluster, on the cluster route) accumulates the weight
+    cotangents of the samples it walks into its own slice of `partials`; a
+    second kernel sums the slices in order, so the result does not depend
+    on scheduling. The library says how many slices it wants and how much
+    scratch each needs."""
+    global fused_rk4_bwd_launches, fused_rk4_cluster_launches
     T, _, B = traj.shape
     _check("traj", traj, (T, 6, B))
     _check("gbar", gbar, (T, 6, B))
@@ -790,7 +878,8 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     lib = _libraries()["fused_rk4_bwd"]
     H, L, in_pad = pw.hidden, pw.n_layers, pw.in_pad
     bf16 = int(mlp_dtype == "bf16")
-    sizes = bwd_sizes(B, C, in_pad, H, L, substeps, mlp_dtype, dev)
+    sizes = _bwd_route(B, C, in_pad, H, L, substeps, bool(bf16), _card_index(dev), route)
+    tw = sizes.tile if sizes.route == "cluster" else 0
     n_w = pw.flat.numel()
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     ybar0, dp, dflat = empty((B, 6)), empty((N_PARAMS, B)), empty((n_w,))
@@ -804,10 +893,11 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
             _ptr(traj), _ptr(gbar), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t),
             _ptr(weights), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dctx),
             _ptr(dflat), _ptr(partials), _ptr(scratch), B, T, C, in_pad, H, L, substeps,
-            n_cp, int(ctx_param_mode == "abs"), bf16, sizes.grid, n_w, stream)
+            n_cp, int(ctx_param_mode == "abs"), bf16, sizes.grid, n_w, tw, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd launch failed: cudaError {err}")
     fused_rk4_bwd_launches += 1
+    fused_rk4_cluster_launches += bool(tw)
     return ybar0, dflat, dp, dctx
 
 

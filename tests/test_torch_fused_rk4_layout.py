@@ -15,9 +15,15 @@ What Python adds for that is tested here on the CPU:
     (on the CPU the plain versions) against the JAX kernels in interpret
     mode, gradients by the JAX suite's `_rel_err < 1e-5`, the trajectory to
     rtol = atol = 2e-4, as tests/test_torch_fused_rk4_bwd.py and
-    tests/test_torch_fused_rk4.py hold them.
+    tests/test_torch_fused_rk4.py hold them;
+  * the route rule of small batches (`_cluster_route`, `_cluster_tile`,
+    `_route`): the cluster route while the card runs a cluster per tile at
+    once, its tile width, and that no public function took an argument for
+    it (tests/test_torch_fused_rk4_cluster.py holds the
+    route itself on the card).
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -39,6 +45,8 @@ CTX_PARAMS = ("G_b", "I_b", "Glu_b")
 _WIDE = Path(tfused.__file__).resolve().parents[1] / "csrc" / "fused_rk4_wide.cuh"
 #: samples per tile, read from the kernels' header: Python keeps no copy
 TILE = int(re.search(r"constexpr int WTILE = (\d+);", _WIDE.read_text()).group(1))
+#: CTAs of a tile on the cluster route, read from the same header
+CLUSTER = int(re.search(r"constexpr int CLUSTER = (\d+);", _WIDE.read_text()).group(1))
 
 
 def _rel_err(a, b):
@@ -107,12 +115,14 @@ def test_cuda_library_reports_the_formula_sizes(B, C, H, L, substeps):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the library is built and asked there)")
     in_pad = -(-(9 + C) // 8) * 8
-    got = tfused.bwd_sizes(B, C, in_pad, H, L, substeps)
+    # the wide route's sizes, whichever route the rule gives these shapes
+    got = tfused._bwd_sizes(B, C, in_pad, H, L, substeps, False, 0, torch.cuda.current_device())
     blocks = torch.cuda.get_device_properties(0).multi_processor_count
     tiles, *want = expected_bwd_sizes(B, in_pad, H, L, substeps, TILE)
     assert got.tile == tfused.fwd_tile() == TILE
     assert [got.scratch, got.partials] == want
     assert got.grid == tiles or (got.grid % blocks == 0 and got.grid < tiles)
+
 
 
 def _case(context, n_layers, B, T=5, H=16, seed=0):
@@ -173,3 +183,66 @@ def test_batches_at_the_tile_edge_match_jax(B, context):
         assert _rel_err(jg[0][k], ode[k].grad.numpy()) < 1e-5, k
     if ctx is not None:
         assert _rel_err(jg[3], tctx.grad.numpy()) < 1e-5, "context"
+
+
+@pytest.mark.parametrize("B,sms,cluster", [(B, 132, True) for B in (1, 32, 64, 1024)]
+                         + [(B, 132, False) for B in (1025, 8192)]
+                         + [(896, 114, True), (1024, 114, False), (65, 8, False), (64, 8, True)])
+def test_route_rule_follows_the_batch_and_the_multiprocessor_count(B, sms, cluster):
+    """A card that runs every cluster its SMs hold at once (one CTA of a
+    cluster kernel per SM)."""
+    assert tfused._cluster_route(B, TILE, sms // CLUSTER) is cluster
+
+
+@pytest.mark.parametrize("B,at_once,cluster", [(960, 15, True), (961, 15, False), (1024, 15, False),
+                                               (1024, 16, True), (32, 1, True), (65, 1, False)])
+def test_route_rule_takes_no_more_tiles_than_clusters_run_at_once(B, at_once, cluster):
+    """An H100 SXM's GPCs run 15 clusters of 8 at once, not 132 // 8 = 16:
+    a 16th tile would wait for a second wave."""
+    assert tfused._cluster_route(B, TILE, at_once) is cluster
+
+
+@pytest.mark.parametrize("B,tw", [(1, 4), (3, 4), (5, 8), (32, 32), (33, 36), (63, 64), (64, 64),
+                                  (200, 64), (1024, 64)])
+def test_cluster_tile_is_the_batch_rounded_up_to_4_at_most_a_wide_tile(B, tw):
+    assert tfused._cluster_tile(B, TILE) == tw
+
+
+@pytest.mark.parametrize("B,fits,route,want", [
+    (32, True, None, "cluster"), (1024, True, None, "cluster"), (1025, True, None, "wide"),
+    (32, False, None, "wide"), (32, True, "wide", "wide"), (8192, True, "cluster", "cluster")])
+def test_route_tile_applies_the_rule_unless_a_route_is_forced(monkeypatch, B, fits, route, want):
+    monkeypatch.setattr(tfused, "fwd_tile", lambda: TILE)
+    tw = tfused._cluster_tile(B, TILE)
+    got = tfused._route(B, tw, 132 // CLUSTER, fits, route)
+    assert got == (tw if want == "cluster" else 0)
+
+
+def test_route_tile_refuses_an_unknown_route_and_widths_that_do_not_fit():
+    with pytest.raises(ValueError, match="unknown route"):
+        tfused._route(32, 32, 16, True, "tiles")
+    with pytest.raises(ValueError, match="do not fit"):
+        tfused._route(32, 32, 16, False, "cluster")
+
+
+#: the public functions' parameters: the route is chosen from the input alone
+PUBLIC_PARAMETERS = {
+    "fused_rk4_fwd": ["y0", "ts_t", "meal_t", "tvns_t", "ctx_t", "pw", "pvec", "substeps",
+                      "ctx_param_idx", "ctx_param_mode", "mlp_dtype"],
+    "fused_rk4_bwd": ["traj", "gbar", "ts_t", "meal_t", "tvns_t", "ctx_t", "pw", "pvec",
+                      "substeps", "ctx_param_idx", "ctx_param_mode", "mlp_dtype"],
+    "fused_rk4_bwd_vjp": ["traj", "gbar", "ts_t", "meal_t", "tvns_t", "ctx_t", "pw", "pvec",
+                          "substeps", "ctx_param_idx", "ctx_param_mode", "mlp_dtype", "bwd_impl"],
+    "bwd_sizes": ["B", "C", "in_pad", "hidden", "n_layers", "substeps", "mlp_dtype", "device"],
+    "fused_rk4_hybrid": ["y0", "ts", "meal", "tvns", "ode_params", "nn_params", "substeps",
+                         "n_layers", "context", "context_param_idx", "mlp_dtype",
+                         "ctx_param_mode", "bwd_impl"],
+    "fused_rk4_trajectory": ["args", "kwargs"],
+    "pack": ["y0", "ts", "meal", "tvns", "ode_params", "nn_params", "n_layers", "context"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PUBLIC_PARAMETERS))
+def test_no_public_function_gains_an_argument_for_the_route(name):
+    params = list(inspect.signature(getattr(tfused, name)).parameters)
+    assert params == PUBLIC_PARAMETERS[name]

@@ -293,7 +293,8 @@ def _tensors(x):
 def test_counters_name_every_program_counter_and_trace_writes_their_change(tmp_path):
     names = profiling.counters()
     assert set(names) == {"fused_rk4.fused_rk4_fwd_launches", "fused_rk4.fused_rk4_bwd_launches",
-                          "fused_rk4.fused_rk4_bwd_vjp_launches", "explicit.host_syncs",
+                          "fused_rk4.fused_rk4_bwd_vjp_launches",
+                          "fused_rk4.fused_rk4_cluster_launches", "explicit.host_syncs",
                           "mcmc.host_syncs", "mcmc.grad_evals", "mcmc.transitions"}
     syncs = explicit.host_syncs
     with profiling.trace(str(tmp_path / "tr")):
@@ -302,4 +303,6 @@ def test_counters_name_every_program_counter_and_trace_writes_their_change(tmp_p
     change = json.loads((tmp_path / "tr" / "counters.json").read_text())
     assert change["explicit.host_syncs"] == explicit.host_syncs - syncs > 0
     assert change["mcmc.transitions"] == 1 and change["mcmc.grad_evals"] > 1
+    # the CPU runs the plain versions: no kernel launch, on either route
+    assert change["fused_rk4.fused_rk4_cluster_launches"] == 0
     assert (tmp_path / "tr" / "trace.json").read_text().count('"hode.solve"') == 1
