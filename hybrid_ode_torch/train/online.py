@@ -16,6 +16,17 @@ that says `use_pallas` (rk4), every adaptation step is one fused forward
 and one hand-adjoint launch (`FusedRK4`) and every forecast one forward
 launch, at B=1. The loss reads no random draws here (no physics term), so
 the JAX package's per-step PRNG keys have no counterpart.
+
+A subject's adaptation is an `Adaptation`: built once (a copy of the
+population weights, a fresh Adam), then one update a `step()`, which reads
+nothing to the host. Under a profiler an adaptation loop is a
+`hode.online.adapt` span (`reveal_points`, `steps`, `scope`, `members`)
+around its updates, each a `hode.online.step` span with children
+`hode.online.loss` (the encoder's and the fused forward's spans inside),
+`.backward` and `.adam`; a forecast is a `hode.online.forecast` span
+(`points`, `members`) and the guard's measure of its arms a
+`hode.online.guard` span (`arms`). The counters `adapt_steps`, `subjects`
+and `forecasts` count updates, adaptations set up and forecasts.
 """
 
 from __future__ import annotations
@@ -29,8 +40,16 @@ import torch
 from hybrid_ode_torch.dynamics.controls import Controls
 from hybrid_ode_torch.models.hybrid import HybridConfig, batched_forward, hybrid_loss, with_context
 from hybrid_ode_torch.parallel import ensemble as _ens
+from hybrid_ode_torch.utils.profiling import span
 
 logger = logging.getLogger("hybrid_ode_torch.online")
+
+#: counters (`utils.profiling.COUNTERS`): adaptation updates taken,
+#: adaptations set up (one a subject, a stacked ensemble's counting once),
+#: forecasts made (one a call, of one model or of every member)
+adapt_steps = 0
+subjects = 0
+forecasts = 0
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -66,27 +85,77 @@ def _copy(params: Params) -> Params:
     return {g: {k: v.detach().clone() for k, v in grp.items()} for g, grp in params.items()}
 
 
-def _adapt(params: Params, adapt_scope: str, adapt_steps: int, learning_rate: float,
-           anchor_weight: float, loss_fn) -> Params:
-    """Adam (optax.adam's defaults) on the adapted MLP leaves of a copy of
-    params, minimising loss_fn(p) + anchor_weight * sum ||nn - nn_pop||^2
-    (one scalar; for a stacked ensemble the members' terms are summed, so
-    each member's leaves get its own gradient); the rest stays frozen."""
-    pop_nn = {k: v.detach() for k, v in params["nn"].items()}
-    p = _copy(params)
-    train = [p["nn"][k].requires_grad_(True) for k in _trained_names(p["nn"], adapt_scope)]
-    opt = torch.optim.Adam(train, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    losses = []
-    for _ in range(adapt_steps):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(p)
-        anchor = sum(torch.sum((p["nn"][k] - pop_nn[k]) ** 2) for k in pop_nn)
-        (loss + anchor_weight * anchor).backward()
-        opt.step()
-        losses.append(loss.detach())
-    if losses:
+class Adaptation:
+    """One subject's adaptation: Adam (optax.adam's defaults) on the adapted
+    MLP leaves of a copy of params, minimising loss_fn(p) + anchor_weight *
+    sum ||nn - nn_pop||^2 (one scalar; for a stacked ensemble the members'
+    terms are summed, so each member's leaves get its own gradient); the
+    rest stays frozen. `step()` takes one update and returns loss_fn(p)
+    before it as a device tensor, reading nothing to the host; `params()`
+    copies the parameters out. `trained` maps the adapted leaves' names to
+    the tensors that `opt` updates."""
+
+    def __init__(self, params: Params, loss_fn, adapt_scope: str, learning_rate: float,
+                 anchor_weight: float):
+        global subjects
+        self.loss_fn, self.scope, self.anchor_weight = loss_fn, adapt_scope, anchor_weight
+        self.pop_nn = {k: v.detach() for k, v in params["nn"].items()}
+        self.p = _copy(params)
+        self.trained = {k: self.p["nn"][k].requires_grad_(True)
+                        for k in _trained_names(self.p["nn"], adapt_scope)}
+        self.opt = torch.optim.Adam(list(self.trained.values()), lr=learning_rate,
+                                    betas=(0.9, 0.999), eps=1e-8)
+        subjects += 1
+
+    def step(self) -> torch.Tensor:
+        global adapt_steps
+        with span("hode.online.step"):
+            self.opt.zero_grad(set_to_none=True)
+            with span("hode.online.loss"):
+                loss = self.loss_fn(self.p)
+                anchor = sum(torch.sum((self.p["nn"][k] - v) ** 2)
+                             for k, v in self.pop_nn.items())
+                total = loss + self.anchor_weight * anchor
+            with span("hode.online.backward"):
+                total.backward()
+            with span("hode.online.adam"):
+                self.opt.step()
+        adapt_steps += 1
+        return loss.detach()
+
+    def params(self) -> Params:
+        return _copy(self.p)
+
+
+def _adapt(adaptation: Adaptation, steps: int, reveal_points: int, members: int = 1) -> Params:
+    """`steps` updates of `adaptation`; the adapted parameters."""
+    with span("hode.online.adapt", reveal_points=reveal_points, steps=steps,
+              scope=adaptation.scope, members=members):
+        losses = [adaptation.step() for _ in range(steps)]
+    if losses and logger.isEnabledFor(logging.DEBUG):
         logger.debug("adaptation loss %0.4f -> %0.4f", float(losses[0]), float(losses[-1]))
-    return _copy(p)
+    return adaptation.params()
+
+
+def subject_adaptation(
+    params: Params,
+    subject_window: Dict[str, np.ndarray],
+    config: HybridConfig,
+    reveal_points: int,
+    learning_rate: float = 1e-3,
+    generator: Optional[torch.Generator] = None,
+    anchor_weight: float = 1.0,
+    adapt_scope: str = "nn",
+) -> Adaptation:
+    """The `Adaptation` of one subject on the first `reveal_points`
+    observations of its stream (`adapt_subject`'s arguments)."""
+    batch = _reveal_batch(subject_window, reveal_points, _device(params))
+
+    def loss_fn(p):
+        return hybrid_loss(p, batch, generator, config, lambda1=0.0, lambda2=0.0,
+                           use_physics_loss=False)[0]
+
+    return Adaptation(params, loss_fn, adapt_scope, learning_rate, anchor_weight)
 
 
 def adapt_subject(
@@ -109,13 +178,9 @@ def adapt_subject(
     adapt_scope: 'nn' trains the whole residual MLP, 'last' only its output
     layer. generator: unused (the loss has no physics term); kept where the
     JAX package takes its PRNG key."""
-    batch = _reveal_batch(subject_window, reveal_points, _device(params))
-
-    def loss_fn(p):
-        return hybrid_loss(p, batch, generator, config, lambda1=0.0, lambda2=0.0,
-                           use_physics_loss=False)[0]
-
-    return _adapt(params, adapt_scope, adapt_steps, learning_rate, anchor_weight, loss_fn)
+    adaptation = subject_adaptation(params, subject_window, config, reveal_points,
+                                    learning_rate, generator, anchor_weight, adapt_scope)
+    return _adapt(adaptation, adapt_steps, reveal_points)
 
 
 def adapt_subject_ensemble(
@@ -141,8 +206,8 @@ def adapt_subject_ensemble(
                                        use_physics_loss=False)
         return losses.sum()
 
-    return _adapt(stacked_params, adapt_scope, adapt_steps, learning_rate, anchor_weight,
-                  loss_fn)
+    adaptation = Adaptation(stacked_params, loss_fn, adapt_scope, learning_rate, anchor_weight)
+    return _adapt(adaptation, adapt_steps, reveal_points, _ens._n_members(stacked_params))
 
 
 def _blend_nn(base: Params, adapted: Params, alpha: float) -> Params:
@@ -199,18 +264,17 @@ def guard_candidate_arms(
     obs = subject_window["observations"][fit:R, state_index]
     m = subject_window["mask"][fit:R] > 0
 
-    @torch.no_grad()
     def tail_sqerr(p):
-        ctl = with_context(p, ctx_batch, ctrls, config)
-        pred = batched_forward(p, y0, ts, ctl, config)[0].cpu().numpy()
+        pred = _forecast_preds(p, config, ts, y0, ctrls, ctx_batch).cpu().numpy()
         err = pred[1:, state_index] - obs
         return (err[m] ** 2).astype(np.float64)
 
-    arms = {0.0: params}
-    sqerrs = {0.0: tail_sqerr(params)}
-    for alpha in shrink_candidates:
-        arms[alpha] = _blend_nn(params, adapted_fit, alpha)
-        sqerrs[alpha] = tail_sqerr(arms[alpha])
+    with span("hode.online.guard", arms=len(shrink_candidates) + 1):
+        arms = {0.0: params}
+        sqerrs = {0.0: tail_sqerr(params)}
+        for alpha in shrink_candidates:
+            arms[alpha] = _blend_nn(params, adapted_fit, alpha)
+            sqerrs[alpha] = tail_sqerr(arms[alpha])
     return arms, sqerrs
 
 
@@ -269,8 +333,11 @@ def _remainder_inputs(ds, w: int, reveal: int, config: HybridConfig, stop: int, 
 
 @torch.no_grad()
 def _forecast_preds(params, config, ts, y0, controls, ctx_batch) -> torch.Tensor:
-    c = with_context(params, ctx_batch, controls, config)
-    return batched_forward(params, y0, ts, c, config)[0]
+    global forecasts
+    with span("hode.online.forecast", points=ts.shape[1], members=1):
+        c = with_context(params, ctx_batch, controls, config)
+        forecasts += 1
+        return batched_forward(params, y0, ts, c, config)[0]
 
 
 def _remainder_rmse(preds: np.ndarray, ds, w: int, reveal: int, stop: int,
@@ -302,16 +369,19 @@ def forecast_remainder_rmse(
 def _member_preds(stacked: Params, config: HybridConfig, y0, ts, controls, ctx_batch):
     """Every member's forecast (K, T', n) on one subject's grid, each member
     encoding the subject with its own context head."""
+    global forecasts
     cfg = _ens._no_pallas(config)
     K = _ens._n_members(stacked)
-    kts = _ens._members(ts, K)
-    signals = {n: _ens._members(v, K) for n, v in controls.signals.items()}
-    if cfg.context_points > 0 and "enc" in stacked:
-        signals["context"] = _ens._member_codes(stacked["enc"], ctx_batch["observations"],
-                                                ctx_batch["time_points"], cfg.context_points,
-                                                cfg.activation)
-    return batched_forward(_ens._member_view(stacked, 1), _ens._members(y0, K), kts,
-                           Controls(ts=kts, signals=signals), cfg)[:, 0]
+    with span("hode.online.forecast", points=ts.shape[1], members=K):
+        kts = _ens._members(ts, K)
+        signals = {n: _ens._members(v, K) for n, v in controls.signals.items()}
+        if cfg.context_points > 0 and "enc" in stacked:
+            signals["context"] = _ens._member_codes(stacked["enc"], ctx_batch["observations"],
+                                                    ctx_batch["time_points"],
+                                                    cfg.context_points, cfg.activation)
+        forecasts += 1
+        return batched_forward(_ens._member_view(stacked, 1), _ens._members(y0, K), kts,
+                               Controls(ts=kts, signals=signals), cfg)[:, 0]
 
 
 def ensemble_forecast_remainder_rmse(
@@ -370,15 +440,16 @@ def guard_candidate_arms_ensemble(
         err = preds_k[:, 1:, state_index] - obs[None]
         return (err[:, m] ** 2).astype(np.float64)
 
-    arms = {0.0: stacked_params}
-    preds0 = member_preds(stacked_params)
-    sqerrs = {0.0: tail_sqerr_from(preds0)}
-    member_sqerrs = {0.0: member_sqerr_from(preds0)}
-    for alpha in shrink_candidates:
-        arms[alpha] = _blend_nn(stacked_params, adapted_fit, alpha)
-        preds_a = member_preds(arms[alpha])
-        sqerrs[alpha] = tail_sqerr_from(preds_a)
-        member_sqerrs[alpha] = member_sqerr_from(preds_a)
+    with span("hode.online.guard", arms=len(shrink_candidates) + 1):
+        arms = {0.0: stacked_params}
+        preds0 = member_preds(stacked_params)
+        sqerrs = {0.0: tail_sqerr_from(preds0)}
+        member_sqerrs = {0.0: member_sqerr_from(preds0)}
+        for alpha in shrink_candidates:
+            arms[alpha] = _blend_nn(stacked_params, adapted_fit, alpha)
+            preds_a = member_preds(arms[alpha])
+            sqerrs[alpha] = tail_sqerr_from(preds_a)
+            member_sqerrs[alpha] = member_sqerr_from(preds_a)
     return arms, sqerrs, member_sqerrs
 
 

@@ -52,6 +52,9 @@ COUNTERS = (
     ("hybrid_ode_torch.inference.mcmc", "host_syncs"),
     ("hybrid_ode_torch.inference.mcmc", "grad_evals"),
     ("hybrid_ode_torch.inference.mcmc", "transitions"),
+    ("hybrid_ode_torch.train.online", "adapt_steps"),
+    ("hybrid_ode_torch.train.online", "subjects"),
+    ("hybrid_ode_torch.train.online", "forecasts"),
 )
 
 
@@ -118,7 +121,8 @@ _live = False  # whether the latest span found the profiler on
 
 def span(name: str, **attrs):
     """A context manager timing the block as span `name`. `attrs` holds host
-    integers, or 0-d device tensors that are read only by `spans()`."""
+    integers or strings, or 0-d device tensors that are read only by
+    `spans()`."""
     global _live
     if not _profiler._is_profiler_enabled:
         _live = False
