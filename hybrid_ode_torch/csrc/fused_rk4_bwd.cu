@@ -83,9 +83,12 @@
 // cluster goes to `sum_rows`, in cluster order. Bias cotangents sum the
 // wide route's column groups (bias_sums) in its order, so every output
 // equals the wide route's bitwise. Between phases, a cluster barrier; ReLU
-// masks stay per CTA in scratch. At B = 32 about 60% of the route's time is
-// phases 1 and 2 (a dependent fmaf chain and an exchange a product, 9 a
-// stage), the rest phase 3 (measured, PERF.md section 6).
+// masks stay per CTA in scratch. Phases 1 and 2 take the forward's product
+// variants (fused_rk4_wide.cuh, Products; the caller picks the same one), the
+// transposed products of a width on the tiles of the forward product of that
+// width, so that each thread reads back the masks it wrote. With the tiled
+// variants, phase 3 is about 35% of the route's time at B = 32 and 30% at
+// B = 1; before them about 30% and 20% (measured, PERF.md section 6).
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): both
 // operands of every product, forward and transposed, are rounded to bf16 at
@@ -710,15 +713,18 @@ struct ClusterLayout {
 // a row, X, Ha, Hb, dX, the residual, P, dP, the stage-state and context
 // cotangents; NTHREADS floats of bias group sums; phase 3's ring of two
 // buffers, (max(in_pad, H) + ceil(H / CLUSTER)) rows of 36 floats each; the
-// exchange's mbarriers. At H = 128, in_pad = 32, C = 16, L = 4: 57 KB of
-// weights, 203 KB in all at tw = 64, 152 KB at tw = 32. Scratch per cluster:
+// exchange's mbarriers. Each slice has room for the generic layout and the
+// tiled one (slice_floats). At H = 128, in_pad = 32, C = 16, L = 4: 59 KB of
+// weights, 201 KB in all at tw = 64, 151 KB at tw = 32. Scratch per cluster:
 // the wide route's operand rows at tw columns (each row written by the CTA
 // that owns it) and every CTA's ReLU masks, one word per thread tile.
 int bwd_cluster_layout(int C, int in_pad, int H, int L, int substeps, int tw, ClusterLayout* lay) {
-  const int nh = split_max(H), n0 = split_max(in_pad), nr = split_max(NOUT);
-  const size_t wts = (size_t)(in_pad + (L - 1) * H) * nh + (size_t)H * NOUT +
-                     cluster_bias_floats(H, L) + (size_t)(NOUT + (L - 1) * H) * nh +
-                     (size_t)H * n0;
+  const int nh = split_max(H), nr = split_max(NOUT);
+  // every slice with room for either layout of the product variants (slice_floats)
+  const size_t wts = (size_t)slice_floats(in_pad, H) + (size_t)(L - 1) * slice_floats(H, H) +
+                     (size_t)slice_ld(H) * NOUT + cluster_bias_floats(H, L) +
+                     (size_t)slice_floats(NOUT, H) + (size_t)(L - 1) * slice_floats(H, H) +
+                     (size_t)slice_floats(H, in_pad);
   const size_t acts = (size_t)tw * (2 * in_pad + 2 * H + NOUT + 2 * NP + 4 * NS + C);
   lay->cap = ((in_pad > H ? in_pad : H) + (nh > nr ? nh : nr)) * (CLUSTER_CHUNK + 4);
   lay->smem = sizeof(float) * (wts + acts + NTHREADS + 2 * (size_t)lay->cap + 2 * Exchange::NBAR);
@@ -733,8 +739,11 @@ int bwd_cluster_layout(int C, int in_pad, int H, int L, int substeps, int tw, Cl
 
 // The wide kernel's function on the cluster's partition. Every CTA holds the
 // tile's per-sample state (thread tid < tw owns sample tile * tw + tid) and
-// computes it alike; CTA 0 writes the per-sample outputs.
-template <bool BF16>
+// computes it alike; CTA 0 writes the per-sample outputs. V: the product
+// variant (fused_rk4_wide.cuh, Products); phase 2's transposed products of
+// layer p's width take the tiles of phase 1's product of it, so a thread
+// reads back the ReLU masks it wrote.
+template <bool BF16, int V>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
 fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
                              const float* __restrict__ gbar,  // (T, 6, B)
@@ -760,13 +769,19 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
   const int lo = split_lo(H, rank), nl = split_lo(H, rank + 1) - lo;               // of H rows
   const int lo0 = split_lo(in_pad, rank), nl0 = split_lo(in_pad, rank + 1) - lo0;  // of in_pad
   const int loR = split_lo(NOUT, rank), hiR = split_lo(NOUT, rank + 1);           // of NOUT
-  float* Wf = reinterpret_cast<float*>(smem4);     // forward slices, per layer [K][nl]
-  float* WL = Wf + (in_pad + (L - 1) * H) * nh;    // [H][NOUT] the last layer, whole
-  float* Bs = WL + H * NOUT;                       // biases: [L][nh] this CTA's rows, the last 8
+  using TT = TileOf<V, TILED_NL>;  // tiles of the hidden products
+  using TL = TileOf<V, NOUT>;      // of the last layer
+  using T0 = TileOf<V, 1>;         // of the product into dX
+  constexpr bool TILED = V != PRODUCTS_GENERIC;
+  // slices [K][rows] (generic) or [rows][slice_ld(K)] (tiled)
+  float* Wf = reinterpret_cast<float*>(smem4);     // forward slices, a layer each
+  float* WL = Wf + slice_floats(in_pad, H) + (L - 1) * slice_floats(H, H);  // the last layer, whole
+  float* Bs = WL + slice_ld(H) * NOUT;             // biases: [L][nh] this CTA's rows, the last 8
   float* Wt = Bs + cluster_bias_floats(H, L);      // transposed slices, products L .. 1 then 0
-  float* X = Wt + (NOUT + (L - 1) * H) * nh + H * split_max(in_pad);  // [in_pad][tw]
-  float* Ha = X + in_pad * tw;                     // [H][tw]
-  float* Hb = Ha + H * tw;                         // [H][tw]
+  float* X = Wt + slice_floats(NOUT, H) + (L - 1) * slice_floats(H, H) +
+             slice_floats(H, in_pad);              // [in_pad][tw]
+  float* Ha = X + in_pad * tw;                     // [H][tw] (tiled: [H / 4][tw][4])
+  float* Hb = Ha + H * tw;                         // the same
   float* dX = Hb + H * tw;                         // [in_pad][tw] the features' cotangent
   float* R = dX + in_pad * tw;                     // [NOUT][tw] residual / stage cotangent
   float* Ps = R + NOUT * tw;                       // [NP][tw] effective parameters
@@ -778,9 +793,13 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
   ring.init(gsum + NTHREADS, cap);                 // [2][cap], phase 3 only
   Exchange ex;                                     // mbarriers of Ha, Hb and dX
   ex.init(reinterpret_cast<unsigned long long*>(gsum + NTHREADS + 2 * cap));
-  auto wf = [&](int l) { return Wf + (l == 0 ? 0 : in_pad + (l - 1) * H) * nh; };
-  // product p's slice: p = L reads [NOUT][nl], p = L-1 .. 1 [H][nl], p = 0 [H][nl0]
-  auto wt = [&](int p) { return Wt + (p == L ? 0 : NOUT + (L - 1 - p) * H) * nh; };
+  auto wf = [&](int l) {
+    return Wf + (l == 0 ? 0 : slice_floats(in_pad, H) + (l - 1) * slice_floats(H, H));
+  };
+  // product p's slice: p = L contracts NOUT, p = L-1 .. 1 H, p = 0 H (to its nl0 rows)
+  auto wt = [&](int p) {
+    return Wt + (p == L ? 0 : slice_floats(NOUT, H) + (L - 1 - p) * slice_floats(H, H));
+  };
 
   const int tid = threadIdx.x;
   const bool owner = tid < tw;
@@ -806,13 +825,20 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
     for (int i = tid; i < K * nn; i += NTHREADS) D[(i / nn) * N + n_lo + i % nn] = 0.f;
     for (int i = tid; i < nn; i += NTHREADS) part[bias_off + l * H + n_lo + i] = 0.f;
   }
+  // the weight slices: load_rows' layout on the tiled variants, load_slice's else
+  auto slice = [&](float* dst, const float* src, int ldw, int K, int lo_, int n_own) {
+    if constexpr (TILED) load_rows(dst, src, ldw, K, lo_, n_own);
+    else load_slice(dst, src, ldw, K, lo_, n_own);
+  };
   for (int l = 0; l < L; ++l)
-    load_slice(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
-  for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[layer_offset(L, in_pad, H) + i];
+    slice(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
+  if constexpr (TILED) load_rows(WL, wpack + layer_offset(L, in_pad, H), NOUT, H, 0, NOUT);
+  else
+    for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[layer_offset(L, in_pad, H) + i];
   load_biases(Bs, bias0, H, L, lo, nl);
   for (int p = L; p >= 1; --p)
-    load_slice(wt(p), wt0 + layer_offset(p, in_pad, H), H, p == L ? NOUT : H, lo, nl);
-  load_slice(wt(0), wt0, in_pad, H, lo0, nl0);
+    slice(wt(p), wt0 + layer_offset(p, in_pad, H), H, p == L ? NOUT : H, lo, nl);
+  slice(wt(0), wt0, in_pad, H, lo0, nl0);
   for (int i = tid; i < in_pad * tw; i += NTHREADS) X[i] = 0.f;
   for (int i = tid; i < C * tw; i += NTHREADS) dCs[i] = 0.f;
   __syncthreads();
@@ -844,6 +870,8 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
     }
   }
   cluster.sync();  // every CTA's shared memory is live before the first exchange
+  Probes pr;
+  pr.start();
 
   for (int iv = T - 2; iv >= 0; --iv) {
     float ts_l = 0.f, ts_r = 0.f, m_l = 0.f, m_r = 0.f, v_l = 0.f, v_r = 0.f;
@@ -872,6 +900,7 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
       for (int c = 0; c < 4; ++c) {
         const int stage = 4 * j + c;
         float* at = SA + (size_t)stage * rowsA * tw;
+        pr.lap(PP_STAGE, false);
         if (owner) {
           float P[NP];
 #pragma unroll
@@ -879,6 +908,7 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
           stage_features(c, jf, t, h, inv_s, y, k, m_l, m_r, v_l, v_r, P, X, tw, tid);
         }
         __syncthreads();
+        pr.lap(PP_DRIFT, false);
         for (int e = tid; e < nl0 * sqn; e += NTHREADS)  // this CTA's rows of X
           reinterpret_cast<float4*>(at)[lo0 * sqn + e] =
               reinterpret_cast<const float4*>(X)[lo0 * sqn + e];
@@ -889,18 +919,47 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
           const float* bias = Bs + l * nh;
           float* at_l = at + (in_pad + l * H) * tw;
           unsigned* mk = masks + (size_t)(stage * L + l) * mask_words;
-          dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
-                           [&](int tt, int n0, int sq, int rows, float (&acc)[1][4], int) {
-                             mk[tt] = bias_relu<1, true>(acc, bias, n0, rows);
-                             store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
-                             store_tile<1>(at_l, sqn, lo + n0, sq, rows, acc);
-                           });
+          if constexpr (TILED) {
+            auto epi = [&](int tt, int n0, int s0, float (&acc)[TT::RT][TT::CT], int) {
+              TT::put_mask(mk, tt, cl_bias_relu(acc, bias, n0));
+              cl_store_ilv(dst, tw, lo + n0, s0, acc);
+              cl_store(at_l, tw, lo + n0, s0, acc);
+            };
+            if (l)
+              cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wf(l), in, unhoisted(tw), NoTag(), epi);
+            else if (in_pad == 32)
+              cl_dense<BF16, 32, TILED_NL, TT, false>(wf(0), X, unhoisted(tw), NoTag(), epi);
+            else
+              cl_dense<BF16, 16, TILED_NL, TT, false>(wf(0), X, unhoisted(tw), NoTag(), epi);
+          } else {
+            dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
+                             [&](int tt, int n0, int sq, int rows, float (&acc)[1][4], int) {
+                               mk[tt] = bias_relu<1, true>(acc, bias, n0, rows);
+                               store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
+                               store_tile<1>(at_l, sqn, lo + n0, sq, rows, acc);
+                             });
+          }
+          pr.lap(l ? PP_HIDDEN : PP_LAYER0);
           ex.publish(dst + lo * tw, l & 1, 4 * nl * tw);
           ex.wait(l & 1, 4 * (H - nl) * tw);  // the layer's rows are in every CTA; `in` is free
+          pr.lap(PP_EXCHANGE, false);
           in = dst;
           K = H;
         }
-        dense_out_tw<BF16>(WL, Bs + L * nh, in, R, K, tw);
+        if constexpr (TILED)
+          cl_dense<BF16, TILED_H, NOUT, TL, true>(
+              WL, in, unhoisted(tw), NoTag(),
+              [&](int, int n0, int s0, float (&acc)[TL::RT][TL::CT], int) {
+#pragma unroll
+                for (int i = 0; i < TL::RT; ++i)
+#pragma unroll
+                  for (int j = 0; j < TL::CT; ++j)
+                    acc[i][j] = acc[i][j] + Bs[L * nh + n0 + i];
+                cl_store(R, tw, n0, s0, acc);
+              });
+        else
+          dense_out_tw<BF16>(WL, Bs + L * nh, in, R, K, tw);
+        pr.lap(PP_LAST);
         // with L odd the last layer read Ha, which the next stage's first product fills
         if (L & 1) cluster_barrier();
         else __syncthreads();
@@ -913,6 +972,7 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
       }
     }
     cluster_barrier();  // the last layer read the buffer the sweep's first product fills
+    pr.lap(PP_STAGE, false);
 
     // ---- phase 2: reverse sweep, substeps backwards, stages 4, 3, 2, 1 ----
     for (int j = substeps - 1; j >= 0; --j) {
@@ -941,6 +1001,7 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
           }
         }
         __syncthreads();
+        pr.lap(PP_T_STAGE, false);
         // product p takes the cotangent g of layer p's output to this CTA's rows
         // of its input's, u = W_p g; masked by layer p - 1's ReLU it is the next g
         const float* g = R;
@@ -950,25 +1011,58 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
             float* gz = ((p - 1) & 1) ? Hb : Ha;
             float* gt_l = gt + (p - 1) * H * tw;
             const unsigned* mk = masks + (size_t)(stage * L + p - 1) * mask_words;
-            dense_w<BF16, 1>(wt(p), nl, g, sqn, Kc, nl, [&](int tt) { return mk[tt]; },
-                             [&](int, int n0, int sq, int rows, float (&acc)[1][4],
-                                 unsigned bits) {
+            if constexpr (TILED) {
+              auto pre = [&](int tt) { return TT::mask(mk, tt); };
+              auto epi = [&](int, int n0, int s0, float (&acc)[TT::RT][TT::CT], unsigned bits) {
 #pragma unroll
-                               for (int jj = 0; jj < 4; ++jj)
-                                 acc[0][jj] *= (bits >> jj) & 1u ? 1.f : 0.f;
-                               store_tile<1>(gz, sqn, lo + n0, sq, rows, acc);
-                               store_tile<1>(gt_l, sqn, lo + n0, sq, rows, acc);
-                             });
+                for (int i = 0; i < TT::RT; ++i)
+#pragma unroll
+                  for (int j = 0; j < TT::CT; ++j)
+                    acc[i][j] *= (bits >> (TT::CT * i + j)) & 1u ? 1.f : 0.f;
+                cl_store_ilv(gz, tw, lo + n0, s0, acc);
+                cl_store(gt_l, tw, lo + n0, s0, acc);
+              };
+              if (p == L)
+                cl_dense<BF16, NOUT, TILED_NL, TT, false>(wt(p), g, unhoisted(tw), pre, epi);
+              else
+                cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wt(p), g, unhoisted(tw), pre, epi);
+            } else {
+              dense_w<BF16, 1>(wt(p), nl, g, sqn, Kc, nl, [&](int tt) { return mk[tt]; },
+                               [&](int, int n0, int sq, int rows, float (&acc)[1][4],
+                                   unsigned bits) {
+#pragma unroll
+                                 for (int jj = 0; jj < 4; ++jj)
+                                   acc[0][jj] *= (bits >> jj) & 1u ? 1.f : 0.f;
+                                 store_tile<1>(gz, sqn, lo + n0, sq, rows, acc);
+                                 store_tile<1>(gt_l, sqn, lo + n0, sq, rows, acc);
+                               });
+            }
+            pr.lap(p == L ? PP_T_FIRST : PP_T_HIDDEN);
             ex.publish(gz + lo * tw, (p - 1) & 1, 4 * nl * tw);
             ex.wait((p - 1) & 1, 4 * (H - nl) * tw);
+            pr.lap(PP_T_EXCHANGE, false);
             g = gz;
           } else {
-            dense_w<BF16, 1>(wt(0), nl0, g, sqn, Kc, nl0, NoTag(),
-                             [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
-                               store_tile<1>(dX, sqn, lo0 + n0, sq, rows, acc);
-                             });
+            if constexpr (TILED) {
+              auto epi = [&](int, int n0, int s0, float (&acc)[T0::RT][T0::CT], int) {
+                cl_store(dX, tw, lo0 + n0, s0, acc);
+              };
+              if (in_pad == 32)
+                cl_dense<BF16, TILED_H, 32 / CLUSTER, T0, true>(wt(0), g, unhoisted(tw), NoTag(),
+                                                                 epi);
+              else
+                cl_dense<BF16, TILED_H, 16 / CLUSTER, T0, true>(wt(0), g, unhoisted(tw), NoTag(),
+                                                                 epi);
+            } else {
+              dense_w<BF16, 1>(wt(0), nl0, g, sqn, Kc, nl0, NoTag(),
+                               [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
+                                 store_tile<1>(dX, sqn, lo0 + n0, sq, rows, acc);
+                               });
+            }
+            pr.lap(PP_T_INPUT);
             ex.publish(dX + lo0 * tw, 2, 4 * nl0 * tw);
             ex.wait(2, 4 * (in_pad - nl0) * tw);
+            pr.lap(PP_T_EXCHANGE, false);
           }
         }
         if (owner)
@@ -987,6 +1081,7 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
     }
 
     // ---- phase 3: this CTA's columns of the interval's weight and bias cotangents ----
+    pr.lap(PP_T_STAGE);
     cluster_barrier();  // every CTA's saved rows are visible
     for (int l = 0; l <= L; ++l) {
       const int K = l == 0 ? in_pad : H, N = l < L ? H : NOUT;
@@ -1009,7 +1104,9 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
       else outer(Int<4>(), Int<1>());
     }
     cluster_barrier();  // nobody reads this interval's scratch rows while the next writes them
+    pr.lap(PP_OUTER, false);
   }
+  pr.finish();
   ex.drain();
   cluster.sync();  // no CTA leaves while a peer may still write into it
 
@@ -1034,7 +1131,7 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
   }
 }
 
-template <bool BF16>
+template <bool BF16, int V>
 cudaError_t launch_cluster(const ClusterLayout& lay, int clusters, cudaStream_t stream,
                            const float* traj, const float* gbar, const float* ts,
                            const float* meal, const float* tvns, const float* ctx,
@@ -1042,7 +1139,7 @@ cudaError_t launch_cluster(const ClusterLayout& lay, int clusters, cudaStream_t 
                            float* dp, float* dctx, float* partials, float* scratch, int B, int T,
                            int C, int in_pad, int H, int n_layers, int substeps, int n_cp,
                            int abs_mode, int n_w, int tw) {
-  auto kernel = fused_rk4_bwd_kernel_cluster<BF16>;
+  auto kernel = fused_rk4_bwd_kernel_cluster<BF16, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
   if (err != cudaSuccess) return err;
@@ -1067,6 +1164,8 @@ cudaError_t launch_cluster(const ClusterLayout& lay, int clusters, cudaStream_t 
 //   sizes[5]  CTAs per slice: 1, or CLUSTER on the cluster route
 //   sizes[6]  1 when a block's (a CTA's) shared memory holds these widths
 //   sizes[7]  on the cluster route, the clusters the card runs at once
+//   sizes[8]  on the cluster route, the product variants built for these
+//             widths at tw (bit v for Products v, products_fit)
 extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers, int substeps,
                                   int bf16, int tw, long long* sizes) {
   if (B < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad < 4 || in_pad % 4 != 0 || n_layers < 1 ||
@@ -1082,9 +1181,12 @@ extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers,
     sizes[4] = 1;
     sizes[5] = CLUSTER;
     sizes[7] = 0;
+    sizes[8] = 0;
+    for (int v = 0; v < PRODUCTS_N; ++v) sizes[8] |= (long long)products_fit(v, in_pad, H, tw) << v;
     if (!sizes[6]) return 0;
     int clusters = 0;
-    const cudaError_t err = max_clusters(fused_rk4_bwd_kernel_cluster<false>, cl.smem, &clusters);
+    const cudaError_t err =
+        max_clusters(fused_rk4_bwd_kernel_cluster<false, PRODUCTS_GENERIC>, cl.smem, &clusters);
     sizes[7] = clusters;
     return (int)err;
   }
@@ -1101,13 +1203,15 @@ extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers,
   sizes[5] = 1;
   sizes[6] = 1;
   sizes[7] = 0;
+  sizes[8] = 0;
   return 0;
 }
 
 // wpack: the packed weights and biases (n_w floats), then every layer's
 // weights once more transposed, (out, in) row-major, in the layers' order.
-// tw: 0 for the wide route, else the cluster route with tiles of tw samples;
-// grid: the slices fused_rk4_bwd_grid reported for it. The caller chooses
+// tw: 0 for the wide route, else the cluster route with tiles of tw samples
+// and its product variant `products` (Products; products_fit); grid: the
+// slices fused_rk4_bwd_grid reported for it. The caller chooses
 // (hybrid_ode_torch/ops/fused_rk4.py).
 extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* ts,
                              const float* meal, const float* tvns, const float* ctx,
@@ -1115,14 +1219,16 @@ extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* 
                              float* ybar0, float* dp, float* dctx, float* dflat,
                              float* partials, float* scratch, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps, int n_cp,
-                             int abs_mode, int bf16, int grid, int n_w, int tw, void* stream) {
+                             int abs_mode, int bf16, int grid, int n_w, int tw, int products,
+                             void* stream) {
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && (!ctx || !dctx)) ||
       (n_cp && !cidx) || grid < 1 ||
       n_w != in_pad * H + (n_layers - 1) * H * H + H * NOUT + n_layers * H + NOUT ||
       (long long)T * NS * B > 0x7fffffffLL ||  // int offsets
-      tw < 0 || tw > WTILE || tw % 4 != 0 || (tw && grid != (B + tw - 1) / tw))
+      tw < 0 || tw > WTILE || tw % 4 != 0 || (tw && grid != (B + tw - 1) / tw) ||
+      products < 0 || products >= PRODUCTS_N || (tw && !products_fit(products, in_pad, H, tw)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
@@ -1135,7 +1241,15 @@ extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* 
                 partials, scratch, B, T, C, in_pad, H, n_layers, substeps, n_cp, abs_mode, n_w,
                 tw);
     };
-    err = bf16 ? go(launch_cluster<true>) : go(launch_cluster<false>);
+    if (products == PRODUCTS_NARROW)
+      err = bf16 ? go(launch_cluster<true, PRODUCTS_NARROW>)
+                 : go(launch_cluster<false, PRODUCTS_NARROW>);
+    else if (products == PRODUCTS_WIDE)
+      err = bf16 ? go(launch_cluster<true, PRODUCTS_WIDE>)
+                 : go(launch_cluster<false, PRODUCTS_WIDE>);
+    else
+      err = bf16 ? go(launch_cluster<true, PRODUCTS_GENERIC>)
+                 : go(launch_cluster<false, PRODUCTS_GENERIC>);
   } else {
     Layout lay;
     if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;

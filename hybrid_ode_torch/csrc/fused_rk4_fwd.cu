@@ -51,8 +51,12 @@
 // its rows after each product. At B = 32 the wide route runs one block on
 // one of 132 SMs (half its lanes dead) and takes as long as at B = 8192;
 // there the bound is not the card's peak but the chain of 128 dependent fmaf
-// a product and its exchange, 5 a stage. The route's outputs equal the wide
-// route's bitwise: every pre-activation is the same k-ascending chain.
+// a product and its exchange, 5 a stage. The kernel is built in three
+// product variants (template argument V; fused_rk4_wide.cuh, Products): the
+// generic one for any widths, and at H = 128 'narrow' (an output a thread)
+// and 'wide' (2 x 2 tiles), which the caller takes at small and larger tile
+// widths. The route's outputs equal the wide route's bitwise in every
+// variant: every pre-activation is the same k-ascending chain.
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): the
 // products read their activations rounded to bf16 and `wpack` holds weights
@@ -222,17 +226,19 @@ cudaError_t launch(size_t smem, int grid, cudaStream_t stream, const float* y0,
 
 // Bytes of shared memory of a CTA on the cluster route: the slices of the
 // hidden layers it owns, the whole last layer, its biases, then X, Ha, Hb
-// and R at tw floats a row, then the exchange's mbarriers.
+// and R at tw floats a row, then the exchange's mbarriers. The slices have
+// room for either layout of every product variant (slice_floats).
 size_t fwd_cluster_smem(int in_pad, int H, int n_layers, int tw) {
-  const size_t wts = (size_t)(in_pad + (n_layers - 1) * H) * split_max(H) + (size_t)H * NOUT +
-                     cluster_bias_floats(H, n_layers);
+  const size_t wts = (size_t)slice_floats(in_pad, H) + (size_t)(n_layers - 1) * slice_floats(H, H) +
+                     (size_t)slice_ld(H) * NOUT + cluster_bias_floats(H, n_layers);
   return sizeof(float) * (wts + (size_t)(in_pad + 2 * H + NOUT) * tw + 2 * Exchange::NBAR);
 }
 
 // The wide kernel's function on the cluster's partition. Every CTA holds the
 // tile's per-sample state (thread tid < tw owns sample tile * tw + tid) and
-// computes it alike; CTA 0 writes the trajectory.
-template <bool BF16>
+// computes it alike; CTA 0 writes the trajectory. V: the product variant
+// (fused_rk4_wide.cuh, Products).
+template <bool BF16, int V>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
 fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
                              const float* __restrict__ ts,    // (T, B)
@@ -250,16 +256,22 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
   const int rank = (int)cluster.block_rank();
   const int L = n_layers, nmax = split_max(H), sqn = tw / 4;
   const int lo = split_lo(H, rank), nl = split_lo(H, rank + 1) - lo;  // this CTA's rows
-  float* Wf = reinterpret_cast<float*>(smem4);     // per layer [K][nl], K = in_pad, H, ...
-  float* WL = Wf + (in_pad + (L - 1) * H) * nmax;  // [H][NOUT] the last layer, whole
-  float* Bs = WL + H * NOUT;                       // biases: [L][nmax] this CTA's rows, the last 8
+  using TT = TileOf<V, TILED_NL>;  // tiles of the hidden products
+  using TL = TileOf<V, NOUT>;      // of the last layer
+  constexpr bool TILED = V != PRODUCTS_GENERIC;
+  // per layer [K][nl] (generic) or [nl][slice_ld(K)] (tiled), K = in_pad, H, ...
+  float* Wf = reinterpret_cast<float*>(smem4);
+  float* WL = Wf + slice_floats(in_pad, H) + (L - 1) * slice_floats(H, H);  // the last layer, whole
+  float* Bs = WL + slice_ld(H) * NOUT;             // biases: [L][nmax] this CTA's rows, the last 8
   float* X = Bs + cluster_bias_floats(H, L);       // [in_pad][tw]
-  float* Ha = X + in_pad * tw;                     // [H][tw]
-  float* Hb = Ha + H * tw;                         // [H][tw]
+  float* Ha = X + in_pad * tw;                     // [H][tw] (tiled: [H / 4][tw][4])
+  float* Hb = Ha + H * tw;                         // the same
   float* R = Hb + H * tw;                          // [NOUT][tw]
   Exchange ex;                                     // mbarriers of Ha and Hb
   ex.init(reinterpret_cast<unsigned long long*>(R + NOUT * tw));
-  auto wf = [&](int l) { return Wf + (l == 0 ? 0 : in_pad + (l - 1) * H) * nmax; };
+  auto wf = [&](int l) {
+    return Wf + (l == 0 ? 0 : slice_floats(in_pad, H) + (l - 1) * slice_floats(H, H));
+  };
 
   const int tid = threadIdx.x;
   const bool owner = tid < tw;
@@ -268,9 +280,14 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
   const bool writer = valid && rank == 0;
   const int L_off = layer_offset(L, in_pad, H);
 
-  for (int l = 0; l < L; ++l)
-    load_slice(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
-  for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[L_off + i];
+  for (int l = 0; l < L; ++l) {
+    const float* src = wpack + layer_offset(l, in_pad, H);
+    if constexpr (TILED) load_rows(wf(l), src, H, l == 0 ? in_pad : H, lo, nl);
+    else load_slice(wf(l), src, H, l == 0 ? in_pad : H, lo, nl);
+  }
+  if constexpr (TILED) load_rows(WL, wpack + L_off, NOUT, H, 0, NOUT);
+  else
+    for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[L_off + i];
   load_biases(Bs, wpack + L_off + H * NOUT, H, L, lo, nl);
   for (int i = tid; i < in_pad * tw; i += NTHREADS) X[i] = 0.f;
   __syncthreads();
@@ -300,6 +317,8 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
   cluster.sync();  // every CTA's shared memory is live before the first exchange
 
   const float inv_s = 1.0f / (float)substeps;
+  Probes pr;
+  pr.start();
 
   for (int i = 0; i + 1 < T; ++i) {
     float ts_l = 0.f, ts_r = 0.f, m_l = 0.f, m_r = 0.f, v_l = 0.f, v_r = 0.f;
@@ -319,25 +338,55 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
 #pragma unroll
       for (int s = 0; s < NS; ++s) k[s] = ksum[s] = 0.f;
       for (int c = 0; c < 4; ++c) {
+        pr.lap(PP_STAGE, false);
         if (owner)
           stage_features(c, jf, t, h, inv_s, y, k, m_l, m_r, v_l, v_r, P, X, tw, tid);
         __syncthreads();
+        pr.lap(PP_DRIFT, false);
         const float* in = X;
         int K = in_pad;
         for (int l = 0; l < L; ++l) {
           float* dst = (l & 1) ? Hb : Ha;
           const float* bias = Bs + l * nmax;
-          dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
-                           [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
-                             bias_relu<1, true>(acc, bias, n0, rows);
-                             store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
-                           });
+          if constexpr (TILED) {
+            auto epi = [&](int, int n0, int s0, float (&acc)[TT::RT][TT::CT], int) {
+              cl_bias_relu(acc, bias, n0);
+              cl_store_ilv(dst, tw, lo + n0, s0, acc);
+            };
+            if (l)
+              cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wf(l), in, tw, NoTag(), epi);
+            else if (in_pad == 32)
+              cl_dense<BF16, 32, TILED_NL, TT, false>(wf(0), X, tw, NoTag(), epi);
+            else
+              cl_dense<BF16, 16, TILED_NL, TT, false>(wf(0), X, tw, NoTag(), epi);
+          } else {
+            dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
+                             [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
+                               bias_relu<1, true>(acc, bias, n0, rows);
+                               store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
+                             });
+          }
+          pr.lap(l ? PP_HIDDEN : PP_LAYER0);
           ex.publish(dst + lo * tw, l & 1, 4 * nl * tw);
           ex.wait(l & 1, 4 * (H - nl) * tw);  // the layer's rows are in every CTA; `in` is free
+          pr.lap(PP_EXCHANGE, false);
           in = dst;
           K = H;
         }
-        dense_out_tw<BF16>(WL, Bs + L * nmax, in, R, K, tw);
+        if constexpr (TILED)
+          cl_dense<BF16, TILED_H, NOUT, TL, true>(
+              WL, in, tw, NoTag(),
+              [&](int, int n0, int s0, float (&acc)[TL::RT][TL::CT], int) {
+#pragma unroll
+                for (int i = 0; i < TL::RT; ++i)
+#pragma unroll
+                  for (int j = 0; j < TL::CT; ++j)
+                    acc[i][j] = acc[i][j] + Bs[L * nmax + n0 + i];
+                cl_store(R, tw, n0, s0, acc);
+              });
+        else
+          dense_out_tw<BF16>(WL, Bs + L * nmax, in, R, K, tw);
+        pr.lap(PP_LAST);
         // with L odd the last layer read Ha, which the next stage's first product fills
         if (L & 1) cluster_barrier();
         else __syncthreads();
@@ -354,17 +403,18 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
       for (int s = 0; s < NS; ++s) out[((i + 1) * NS + s) * B + b] = y[s];
     }
   }
+  pr.finish();
   ex.drain();
   cluster.sync();  // no CTA leaves while a peer may still write into it
 }
 
-template <bool BF16>
+template <bool BF16, int V>
 cudaError_t launch_cluster(size_t smem, int clusters, cudaStream_t stream, const float* y0,
                            const float* ts, const float* meal, const float* tvns,
                            const float* ctx, const float* wpack, const float* pvec,
                            const int* cidx, float* out, int B, int T, int C, int in_pad, int H,
                            int n_layers, int substeps, int n_cp, int abs_mode, int tw) {
-  auto kernel = fused_rk4_fwd_kernel_cluster<BF16>;
+  auto kernel = fused_rk4_fwd_kernel_cluster<BF16, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -384,7 +434,9 @@ extern "C" int fused_rk4_fwd_tile(int* tile) {
 
 // The cluster route at tile width tw: sizes[0] = CTAs per tile, sizes[1] = 1
 // when a CTA's shared memory holds these widths, sizes[2] = its bytes,
-// sizes[3] = clusters the card runs at once (0 where they do not fit).
+// sizes[3] = clusters the card runs at once (0 where they do not fit),
+// sizes[4] = the product variants built for these widths at tw (bit v for
+// Products v, products_fit).
 extern "C" int fused_rk4_fwd_cluster(int in_pad, int H, int n_layers, int tw, long long* sizes) {
   if (tw < 4 || tw > WTILE || tw % 4 != 0 || H < 4 || H % 4 != 0 || in_pad < 4 ||
       in_pad % 4 != 0 || n_layers < 1)
@@ -394,27 +446,33 @@ extern "C" int fused_rk4_fwd_cluster(int in_pad, int H, int n_layers, int tw, lo
   sizes[1] = smem <= (size_t)SMEM_LIMIT;
   sizes[2] = (long long)smem;
   sizes[3] = 0;
+  sizes[4] = 0;
+  for (int v = 0; v < PRODUCTS_N; ++v) sizes[4] |= (long long)products_fit(v, in_pad, H, tw) << v;
   if (!sizes[1]) return 0;
   int clusters = 0;
-  const cudaError_t err = max_clusters(fused_rk4_fwd_kernel_cluster<false>, smem, &clusters);
+  const cudaError_t err =
+      max_clusters(fused_rk4_fwd_kernel_cluster<false, PRODUCTS_GENERIC>, smem, &clusters);
   sizes[3] = clusters;
   return (int)err;
 }
 
 // tw: 0 for the wide route (64-sample tiles, one block each), else the
 // cluster route with tiles of tw samples (a multiple of 4, at most 64), one
-// cluster each. The caller chooses (hybrid_ode_torch/ops/fused_rk4.py).
+// cluster each, and its product variant `products` (Products; products_fit).
+// The caller chooses both (hybrid_ode_torch/ops/fused_rk4.py).
 extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal,
                              const float* tvns, const float* ctx,
                              const float* wpack, const float* pvec,
                              const int* cidx, float* out, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps,
-                             int n_cp, int abs_mode, int bf16, int tw, void* stream) {
+                             int n_cp, int abs_mode, int bf16, int tw, int products,
+                             void* stream) {
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && !ctx) ||
       (n_cp && !cidx) || (long long)T * NS * B > 0x7fffffffLL ||  // int offsets
-      tw < 0 || tw > WTILE || tw % 4 != 0)
+      tw < 0 || tw > WTILE || tw % 4 != 0 || products < 0 || products >= PRODUCTS_N ||
+      (tw && !products_fit(products, in_pad, H, tw)))
     return (int)cudaErrorInvalidValue;
   if (tw) {
     const size_t smem = fwd_cluster_smem(in_pad, H, n_layers, tw);
@@ -424,7 +482,14 @@ extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal
                      wpack, pvec, cidx, out, B, T, C, in_pad, H, n_layers, substeps, n_cp,
                      abs_mode, tw);
     };
-    return bf16 ? go(launch_cluster<true>) : go(launch_cluster<false>);
+    if (products == PRODUCTS_NARROW)
+      return bf16 ? go(launch_cluster<true, PRODUCTS_NARROW>)
+                  : go(launch_cluster<false, PRODUCTS_NARROW>);
+    if (products == PRODUCTS_WIDE)
+      return bf16 ? go(launch_cluster<true, PRODUCTS_WIDE>)
+                  : go(launch_cluster<false, PRODUCTS_WIDE>);
+    return bf16 ? go(launch_cluster<true, PRODUCTS_GENERIC>)
+                : go(launch_cluster<false, PRODUCTS_GENERIC>);
   }
   size_t smem;
   int wcap, staged;

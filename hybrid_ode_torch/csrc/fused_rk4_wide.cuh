@@ -32,38 +32,50 @@
 // [split_lo(N, r), split_lo(N, r + 1)) of each hidden layer (and of the
 // adjoint's input cotangents), keeps the slice W[:, rows] of those layers and
 // its biases in shared memory for the whole launch (read from L2 once a
-// launch, not once a stage), and computes its rows for all tw samples with
-// dense_w on that row range (RT = 1: one row x 4 samples a thread, so that a
-// 16-row slice still gives 128 threads a tile at tw = 32). It writes them
-// into its own copy of the layer's buffer; the Exchange copies that block
-// into every other CTA (one bulk copy each through distributed shared
-// memory, completing on the receiver's mbarrier), so a product costs one
-// wait on local bytes, not a cluster barrier. The per-sample work
-// (mechanistic drift, RK4 state, stage sums, the 8-row last layer) runs
-// redundantly in every CTA on identical operands, so it needs no exchange.
+// launch, not once a stage), and computes its rows for all tw samples in one
+// of three product variants (Products, below; the launcher picks one from tw
+// and the widths). It writes them into its own copy of the layer's buffer;
+// the Exchange copies that block into every other CTA (one bulk copy each
+// through distributed shared memory, completing on the receiver's mbarrier),
+// so a product costs one wait on local bytes, not a cluster barrier. The
+// per-sample work (mechanistic drift, RK4 state, stage sums, the 8-row last
+// layer) runs redundantly in every CTA on identical operands, so it needs no
+// exchange.
 //   * Why by N and never by K: a split of the contraction would split the sum
 //     above into partial sums added in another order. Split by N, every output
 //     is the same k-ascending fmaf chain as on the wide route, so trajectories
 //     and adjoints equal the wide route's bitwise (its dead lanes add exact
-//     zeros to the weight cotangents).
-//   * What bounds it: latency, not the card's peak. A product is a chain of K
-//     dependent fmaf per output with one or two warps a scheduler to hide it,
-//     and each thread reads a float4 of activations from shared memory for
-//     4 fmaf; then one exchange. Measured on an H100 at tw = 32, H = 128:
-//     about 3.9k cycles a 128-deep product, 0.8-1k cycles an exchange,
-//     20k cycles a forward stage (clock64 probes), against 512 cycles of
-//     dependent fmaf a product.
-//   * Shared memory (CTA, floats): the weight slices, (in_pad + (L-1) H) x
-//     ceil(H / CLUSTER) of the forward products, the whole last layer (H x 8)
-//     and the CTA's biases, then tw x (in_pad + 2 H + 8) of activations and 6
-//     of mbarriers; at H = 128, 16 context features, L = 4: 30 KB of weights,
+//     zeros to the weight cotangents), whichever variant computes it.
+//   * What bounds a product: its chains, then the SM's shared-memory loads.
+//     A 128-deep output is 128 dependent fmaf (about 4.5 cycles each: 570
+//     cycles); one warp alone issues about an instruction every 2.5 cycles;
+//     a warp's 16-byte shared load takes 4 cycles of the SM's load path where
+//     a quarter-warp reads 8 addresses, 2 where it reads one. The generic
+//     variant (one row x 4 samples a thread, a scalar weight and a float4 of
+//     samples a k) waited on shared memory at every k: 3.7k cycles a 128-deep
+//     product at tw = 32, 3.2k at tw = 4. The tiled ones load 4 k of a weight
+//     row and 4 k of a sample per 16-byte load, unrolled with compile-time
+//     offsets and loaded ahead: 'narrow' (an output a thread, 64 threads at
+//     tw = 4) runs near its chains, 0.87k cycles; 'wide' (2 x 2 tiles, 128
+//     threads at tw = 32) at the load path, 2.0k. Measured on an H100 with
+//     clock64 probes (kernel_probes.py, PERF.md section 6): a forward stage
+//     12.7k cycles at tw = 32 (20.6k generic: 0.4k drift, 0.8k layer 0,
+//     3 x 2.0k hidden, 4 x 1.0k exchanges, 1.2k last layer, 0.4k the rest)
+//     and 9.0k at tw = 4 (18.4k), where the exchanges are 3.7k of it.
+//   * Shared memory (CTA, floats): the weight slices, slice_floats of each
+//     forward product's (room for the generic layout, [K][rows], and the
+//     tiled one, [rows][K + 4]), the whole last layer ((H + 4) x 8) and the
+//     CTA's biases, then tw x (in_pad + 2 H + 8) of activations and 6 of
+//     mbarriers; at H = 128, 16 context features, L = 4: 32 KB of weights,
 //     76 KB of activations at tw = 64. The adjoint adds its transposed slices
-//     (27 KB), the per-sample state and phase 3's ring (fused_rk4_bwd.cu).
+//     (28 KB), the per-sample state and phase 3's ring (fused_rk4_bwd.cu).
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
+
+#include <type_traits>
 
 #include "fused_rk4_common.cuh"
 
@@ -91,6 +103,72 @@ constexpr bool CUT_SAVES = FUSED_RK4_CUT & 1;
 constexpr bool CUT_SWEEP = FUSED_RK4_CUT & 2;
 constexpr bool CUT_OUTER = FUSED_RK4_CUT & 4;
 constexpr bool CUT_LOADS = FUSED_RK4_CUT & 8;
+
+// Cycle probes of the cluster route: built with -DFUSED_RK4_PROBE=1, thread 0
+// of a launch's first CTA sums the clock64 cycles of each part of a stage in
+// shared memory and, at the end, adds them to probe_cycles[part] (and the
+// part's count to probe_calls[part]); a part ends at a block barrier, one more
+// where the code has none. kernel_probes.py at the repository's root reads
+// them. The default, 0, compiles to no code at all.
+#ifndef FUSED_RK4_PROBE
+#define FUSED_RK4_PROBE 0
+#endif
+enum ProbePart {
+  PP_DRIFT,     // the stage's drift and features, to the barrier after them
+  PP_LAYER0,    // the first product (K = in_pad)
+  PP_HIDDEN,    // a hidden product (K = H)
+  PP_EXCHANGE,  // a product's exchange: publish, then wait for the peers' rows
+  PP_LAST,      // the last layer (8 rows, K = H)
+  PP_STAGE,     // the stage's closing barrier, its RK4 sum, the interval's bookkeeping
+  PP_T_FIRST,   // phase 2: the first transposed product (K = 8)
+  PP_T_HIDDEN,  // phase 2: a transposed hidden product (K = H)
+  PP_T_INPUT,   // phase 2: the product into the features' cotangent (N = in_pad)
+  PP_T_EXCHANGE,
+  PP_T_STAGE,   // phase 2: the stage's mechanistic transpose and barriers
+  PP_OUTER,     // phase 3, whole, with its barriers
+  PP_N
+};
+#if FUSED_RK4_PROBE
+__device__ unsigned long long probe_cycles[PP_N], probe_calls[PP_N];
+#endif
+
+struct Probes {
+#if FUSED_RK4_PROBE
+  long long t;
+  unsigned long long* sum;  // [2][PP_N]: cycles, then counts
+  __device__ __forceinline__ bool on() const { return blockIdx.x == 0 && threadIdx.x == 0; }
+#endif
+  __device__ __forceinline__ void start() {
+#if FUSED_RK4_PROBE
+    __shared__ unsigned long long sums[2 * PP_N];
+    sum = sums;
+    if (on())
+      for (int i = 0; i < 2 * PP_N; ++i) sum[i] = 0;
+    t = clock64();
+#endif
+  }
+  // Ends `part` here; with `sync`, after a block barrier of its own.
+  __device__ __forceinline__ void lap(int part, bool sync = true) {
+#if FUSED_RK4_PROBE
+    if (sync) __syncthreads();
+    if (on()) {
+      const long long now = clock64();
+      sum[part] += (unsigned long long)(now - t);
+      sum[PP_N + part] += 1;
+      t = now;
+    }
+#endif
+  }
+  __device__ __forceinline__ void finish() const {
+#if FUSED_RK4_PROBE
+    if (on())
+      for (int i = 0; i < PP_N; ++i) {
+        probe_cycles[i] += sum[i];
+        probe_calls[i] += sum[PP_N + i];
+      }
+#endif
+  }
+};
 
 // Floats of layer l's weights, and their offset in the packed layout.
 __host__ __device__ inline int layer_floats(int l, int in_pad, int H, int L) {
@@ -509,6 +587,223 @@ __device__ __forceinline__ void load_slice(float* dst, const float* __restrict__
     dst[i] = W[(i / n_own) * ldw + lo + i % n_own];
 }
 
+// ---- The cluster route's tiled products (PRODUCTS_NARROW, PRODUCTS_WIDE
+// below; PRODUCTS_GENERIC keeps dense_w's RT = 1 and dense_out_tw). The wide
+// route's dense_w, dense_out and outer_w do not use them.
+
+// Floats a row of a k-contiguous weight slice takes: K and 4 more, so that
+// the float4 at k of rows n and n + 1 lie 4 banks apart.
+__host__ __device__ constexpr int slice_ld(int K) { return K + 4; }
+
+// Floats of a CTA's slices of K x N products, [n][slice_ld(K)] for its rows
+// of N (load_rows) or [K][rows] (load_slice): room for either.
+__host__ __device__ inline int slice_floats(int K, int N) { return slice_ld(K) * split_max(N); }
+
+// W[k * ldw + lo + n] for k < K, n < n_own into dst[n][slice_ld(K)]: a CTA's
+// rows of a layer, each k-contiguous, read once a launch.
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ W, int ldw, int K,
+                                          int lo, int n_own) {
+  for (int i = threadIdx.x; i < K * n_own; i += NTHREADS)
+    dst[(i % n_own) * slice_ld(K) + i / n_own] = W[(i / n_own) * ldw + lo + i % n_own];
+}
+
+// A thread tile of the cluster route's products: RT consecutive rows x CT
+// samples tw / CT apart (samples s0 + j tw / CT, j < CT), so that consecutive
+// lanes take consecutive samples in every load and store of a tile. The sg =
+// tw / CT tiles of a row group lie on P lanes, P the power of 2 >= sg (lanes
+// past sg idle), so that a thread finds its tile with a shift and a mask. A
+// variant is built only where that takes at most NTHREADS lanes
+// (products_fit): a thread has one tile at most.
+template <int RT_, int CT_>
+struct Tile {
+  static constexpr int RT = RT_, CT = CT_;
+  bool valid;       // this thread has a tile of the product
+  int idx, n0, s0;  // its index (row group x sg + s0), first row, first sample
+  __device__ static Tile at(int N, int tw) {
+    const int sg = tw / CT, lg = 32 - __clz(sg - 1);
+    const int r = threadIdx.x >> lg, c = threadIdx.x & ((1 << lg) - 1);
+    return {c < sg && r < N / RT, r * sg + c, r * RT, c};
+  }
+  // Phase 1 of the adjoint keeps a tile's ReLU bits (bit CT i + j) for phase
+  // 2, whose transposed product of the same width has the same tiles. A tile
+  // of one output shares one word with its warp (word idx / 32; 'narrow' is
+  // built only where a product's tiles fill whole warps: tw a power of 2); a
+  // larger tile has word idx of its own: at most 4 tw words of a 16-row slice.
+  __device__ static void put_mask(unsigned* mk, int t, unsigned bits) {
+    static_assert(RT * CT == 1 || RT * CT >= 4, "a ReLU mask: a warp's ballot, or a word a tile");
+    if constexpr (RT * CT == 1) {
+      const unsigned w = __ballot_sync(0xffffffffu, bits & 1u);
+      if ((threadIdx.x & 31) == 0) mk[t / 32] = w;
+    } else {
+      mk[t] = bits;
+    }
+  }
+  __device__ static unsigned mask(const unsigned* mk, int t) {
+    if constexpr (RT * CT == 1) return (mk[t / 32] >> (t & 31)) & 1u;
+    else return mk[t];
+  }
+};
+
+// The cluster route's product on its tiled paths: in the thread that owns
+// Tile t of the (N x tw) output (Tile::at), tag = pre(t), then
+//   acc[i][j] = sum_k W[(n0 + i) * slice_ld(K) + k] * in(k, s0 + j tw / CT),
+// k ascending from 0 by fmaf (the chain every route takes), then
+// epi(t, n0, s0, acc, tag). W holds the product's rows k-contiguous
+// (load_rows), so one float4 brings 4 k of a row. `in` is [K][tw] or, with
+// ILV, [K / 4][tw][4] (cl_store_ilv), where one float4 brings 4 k of a
+// sample. Lanes that share rows read one weight address; consecutive lanes
+// read consecutive samples. K and N are compile-time: the loop is unrolled
+// whole, every weight address is an immediate offset, and each quad of k is
+// loaded AHEAD quads before its fmaf, so the chain does not wait on shared
+// memory (the RT = 1 loop of dense_w waited about 28 cycles a k). BF16: `in`
+// is read rounded.
+template <bool BF16, int K, int N, class T, bool ILV, class Pre, class Epi>
+__device__ __forceinline__ void cl_dense(const float* W, const float* in, int tw, Pre pre,
+                                         Epi epi) {
+  constexpr int RT = T::RT, CT = T::CT, Q = K / 4, LD4 = slice_ld(K) / 4, AHEAD = 2, NB = AHEAD + 1;
+  static_assert(K % 4 == 0 && N % RT == 0, "product widths");
+  const T tile = T::at(N, tw);
+  if (tile.valid) {
+    const int t = tile.idx, n0 = tile.n0, s0 = tile.s0, ss = tw / CT;
+    const float4* w4 = reinterpret_cast<const float4*>(W) + n0 * LD4;
+    const float* a = in + s0;
+    const auto tag = pre(t);
+    float acc[RT][CT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+    float4 wq[NB][RT];
+    float aq[NB][4][CT];
+    auto load = [&](int q) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) wq[q % NB][i] = w4[i * LD4 + q];
+      if constexpr (ILV) {
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const float4 x = reinterpret_cast<const float4*>(in)[q * tw + s0 + j * ss];
+          aq[q % NB][0][j] = x.x; aq[q % NB][1][j] = x.y;
+          aq[q % NB][2][j] = x.z; aq[q % NB][3][j] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) aq[q % NB][kk][j] = a[(4 * q + kk) * tw + j * ss];
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < AHEAD && q < Q; ++q) load(q);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (q + AHEAD < Q) load(q + AHEAD);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float4 wv = wq[q % NB][i];
+          const float w = kk == 0 ? wv.x : kk == 1 ? wv.y : kk == 2 ? wv.z : wv.w;
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            acc[i][j] = fmaf(w, operand<BF16>(aq[q % NB][kk][j]), acc[i][j]);
+        }
+    }
+    epi(t, n0, s0, acc, tag);
+  }
+}
+
+// x, opaque to the compiler: what a product computes from it (its thread's
+// Tile) is computed there, not hoisted into registers held across the stage
+// loops. The adjoint's cluster kernel, which has no register to spare, passes
+// its tile width so (spilling otherwise: its 2 x 2 products took 3.5k cycles
+// for 2.0k in the forward); the forward, which has them, lets it be hoisted.
+__device__ __forceinline__ int unhoisted(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// v[i][j] = relu(v[i][j] + bias[n0 + i]) as bias_relu takes it; returns bit
+// CT i + j set where the result is > 0.
+template <int RT, int CT>
+__device__ __forceinline__ unsigned cl_bias_relu(float (&v)[RT][CT], const float* bias, int n0) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float b = bias[n0 + i];
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      float x = v[i][j] + b;
+      x = x < 0.f ? 0.f : x;
+      v[i][j] = x;
+      bits |= (x > 0.f ? 1u : 0u) << (CT * i + j);
+    }
+  }
+  return bits;
+}
+
+// out[(r0 + i) * tw + s0 + j tw / CT] = v[i][j]: a Tile into a [rows][tw] buffer.
+template <int RT, int CT>
+__device__ __forceinline__ void cl_store(float* out, int tw, int r0, int s0,
+                                         const float (&v)[RT][CT]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) out[(r0 + i) * tw + s0 + j * (tw / CT)] = v[i][j];
+}
+
+// The same into a [rows / 4][tw][4] buffer, which keeps 4 consecutive rows of
+// a sample together: row r of sample s at (r / 4) 4 tw + 4 s + r % 4 (r0 a
+// multiple of RT). A CTA's rows [lo, lo + nl) of it (lo, nl multiples of 4)
+// are the floats [lo tw, (lo + nl) tw), as in a [rows][tw] buffer, so the
+// Exchange copies them alike.
+template <int RT, int CT>
+__device__ __forceinline__ void cl_store_ilv(float* out, int tw, int r0, int s0,
+                                             const float (&v)[RT][CT]) {
+  static_assert(RT == 1 || RT == 2 || RT == 4, "row tile");
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    float* p = out + (r0 / 4) * 4 * tw + 4 * (s0 + j * (tw / CT)) + r0 % 4;
+    if constexpr (RT == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    else if constexpr (RT == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0][j], v[1][j]);
+    else *p = v[0][j];
+  }
+}
+
+// The cluster route's product variants. The launcher picks one from the tile
+// width and the widths (hybrid_ode_torch/ops/fused_rk4.py, _cluster_products);
+// a kernel instance holds one.
+//   PRODUCTS_GENERIC  any widths: dense_w's RT = 1 (one row x 4 samples a
+//                     thread) and dense_out_tw on slices [K][rows] (load_slice)
+//                     and activations [rows][tw];
+//   PRODUCTS_NARROW   H = TILED_H, in_pad 16 or 32, tw 4, 8 or 16: cl_dense on
+//                     Tile<1, 1>, an output a thread (the launcher: tw <= 8);
+//   PRODUCTS_WIDE     the same widths, any tw: Tile<2, 2>.
+// The tiled two keep k-contiguous weight rows (load_rows) and the hidden
+// layers' activations and cotangents 4 rows of a sample together
+// (cl_store_ilv); the features, the residual and dX stay [rows][tw].
+enum Products { PRODUCTS_GENERIC, PRODUCTS_NARROW, PRODUCTS_WIDE, PRODUCTS_N };
+constexpr int TILED_H = 128;                   // hidden width the tiled variants are built for
+constexpr int TILED_NL = TILED_H / CLUSTER;    // rows of it a CTA owns
+static_assert(TILED_H % (4 * CLUSTER) == 0, "a CTA's rows are whole quads");
+
+// Whether variant v runs these widths at tile width tw.
+__host__ __device__ inline bool products_fit(int v, int in_pad, int H, int tw) {
+  if (v == PRODUCTS_GENERIC) return true;
+  if (H != TILED_H || (in_pad != 16 && in_pad != 32)) return false;
+  if (v == PRODUCTS_NARROW) return TILED_NL * tw <= NTHREADS && (tw & (tw - 1)) == 0;
+  return v == PRODUCTS_WIDE;
+}
+
+// The thread tile of variant V's products of N rows: an output a thread on
+// 'narrow' and in the product into dX (N = in_pad / CLUSTER); on 'wide' 2 x 2
+// for the 16-row products and 2 x 1 for the 8-row last layer, so that each
+// takes 4 warps at tw = 32.
+template <int V, int N>
+using TileOf = typename std::conditional<
+    V == PRODUCTS_NARROW || N < NOUT, Tile<1, 1>,
+    typename std::conditional<N == NOUT, Tile<2, 1>, Tile<2, 2>>::type>::type;
+
 // Stage c (0..3) of RK4 substep j (jf = j) of the step h from state y at time
 // t: the stage's leading NF features of one sample into column `col` of X
 // (rows of `ld` floats), and its mechanistic drift into k, which holds the
@@ -549,3 +844,17 @@ __device__ __forceinline__ void stage_sum(int c, const float* R, int ld, int col
 }
 
 }  // namespace fused_rk4
+
+#if FUSED_RK4_PROBE
+// out[0 .. PP_N) = the probes' cycles, out[PP_N .. 2 PP_N) their counts,
+// since the last call; then zeroes them.
+extern "C" int fused_rk4_probes(long long* out) {
+  unsigned long long zero[fused_rk4::PP_N] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (!err) err = cudaMemcpyFromSymbol(out, fused_rk4::probe_cycles, sizeof(zero));
+  if (!err) err = cudaMemcpyFromSymbol(out + fused_rk4::PP_N, fused_rk4::probe_calls, sizeof(zero));
+  if (!err) err = cudaMemcpyToSymbol(fused_rk4::probe_cycles, zero, sizeof(zero));
+  if (!err) err = cudaMemcpyToSymbol(fused_rk4::probe_calls, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

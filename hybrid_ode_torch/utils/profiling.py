@@ -48,6 +48,9 @@ COUNTERS = (
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_bwd_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_bwd_vjp_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_launches"),
+    ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_generic_launches"),
+    ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_narrow_launches"),
+    ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_wide_launches"),
     ("hybrid_ode_torch.solvers.explicit", "host_syncs"),
     ("hybrid_ode_torch.inference.mcmc", "host_syncs"),
     ("hybrid_ode_torch.inference.mcmc", "grad_evals"),

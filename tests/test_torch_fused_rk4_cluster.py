@@ -9,6 +9,10 @@ every weight and bias cotangent, dp and dctx. A leaf that may differ would
 be named in BITWISE_EXCEPTIONS with its gap and held to the plain version
 only; there is none. Both routes are also held to the plain versions at
 chip_smoke.py phase 3's limits, and a second launch must repeat the first.
+The route's product variants (`fused_rk4.PRODUCTS`, picked by the tile
+width) are each held alike: batches at the edges of their tile widths, the
+uneven widths that only the generic one runs, and every variant forced on the
+recipe's widths against the generic one.
 
 JAX-free: run on the card with
     python3 -m pytest tests/test_torch_fused_rk4_cluster.py --noconftest -q
@@ -94,8 +98,9 @@ def _gap(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-CASES = [(B, mode, dtype) for B in (1, 5, 32, 64, 200) for mode in ("features", "mul", "abs")
-         for dtype in ("f32", "bf16")]
+#: tile widths 4 and 8 ('narrow'), then 12, 16, 20, 32, 36, 64 ('wide')
+CASES = [(B, mode, dtype) for B in (1, 4, 5, 8, 9, 16, 17, 32, 33, 64, 200)
+         for mode in ("features", "mul", "abs") for dtype in ("f32", "bf16")]
 
 
 @pytest.mark.cuda
@@ -121,24 +126,37 @@ def test_cluster_route_equals_the_wide_route_and_the_plain_versions(device, B, m
                                mlp_dtype="bf16", limit=chip_smoke.BF16_SMALL_RTOL)
 
 
+def _variant_counts():
+    return {v: getattr(fused_rk4, f"fused_rk4_cluster_{v}_launches") for v in fused_rk4.PRODUCTS}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [32, 200])
-def test_cluster_route_repeats_itself_bitwise_and_counts_its_launches(device, B):
+@pytest.mark.parametrize("B,variant", [(4, "narrow"), (8, "narrow"), (9, "wide"), (32, "wide"),
+                                       (200, "wide")])
+def test_cluster_route_repeats_itself_bitwise_and_counts_its_launches(device, B, variant):
     packed, idx, m = _case(device, B, "features")
-    before = fused_rk4.fused_rk4_cluster_launches
+    before, variants = fused_rk4.fused_rk4_cluster_launches, _variant_counts()
     first, second = (_both_routes(packed, idx, m, "f32")["cluster"] for _ in range(2))
     assert fused_rk4.fused_rk4_cluster_launches - before == 4  # two forwards, two adjoints
+    # the recipe's widths at this batch's tile width take `variant`, counted per variant
+    after = _variant_counts()
+    assert {v: after[v] - variants[v] for v in after} == {
+        v: 4 if v == variant else 0 for v in fused_rk4.PRODUCTS}
     assert torch.equal(first[0], second[0])
     assert all(torch.equal(first[1][n], second[1][n]) for n in first[1])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden,n_layers,C", [(20, 3, 4), (64, 1, 0), (132, 2, 16)])
-def test_cluster_route_at_uneven_splits_and_odd_depth(device, hidden, n_layers, C):
+@pytest.mark.parametrize("B", [5, 37])
+@pytest.mark.parametrize("hidden,n_layers,C", [(20, 3, 4), (64, 1, 0), (132, 2, 16), (128, 3, 16),
+                                               (128, 1, 0)])
+def test_cluster_route_at_uneven_splits_and_odd_depth(device, hidden, n_layers, C, B):
     """Rows that do not split evenly over the cluster (H = 20, 132; in_pad =
     16 gives 2 rows a CTA), an odd number of hidden layers (the last layer
-    reads the buffer the next stage's first product fills)."""
-    packed, idx, m = _case(device, 37, "features" if C else "mul", hidden, n_layers, C)
+    reads the buffer the next stage's first product fills), at a 'narrow' and
+    a 'wide' tile width: the generic products at H != 128, the tiled ones at
+    odd depth and at in_pad = 16 (no context)."""
+    packed, idx, m = _case(device, B, "features" if C else "mul", hidden, n_layers, C)
     runs = _both_routes(packed, idx, m, "f32")
     (traj_c, leaves_c), (traj_w, leaves_w) = runs["cluster"], runs["wide"]
     assert torch.equal(traj_c, traj_w), f"trajectory differs by {_gap(traj_c, traj_w):.3e}"
@@ -159,7 +177,7 @@ def test_the_rule_takes_the_cluster_route_at_the_recipe_batch_and_not_at_the_coh
         assert (got.route == "cluster") == want, (B, got)
         assert (got.cluster > 1) == want
         tw = fused_rk4._cluster_tile(B, tile)
-        fits, fwd_at_once = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw, index)
+        fits, fwd_at_once, _ = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw, index)
         assert fused_rk4._route(B, tw, fwd_at_once, fits, None) == (tw if want else 0)
 
 
@@ -179,3 +197,32 @@ def test_bwd_sizes_on_the_rule_route_are_the_formula_sizes(device, B, C, H, L, s
     assert -(-B // TILE) <= got.at_once and got.cluster == CLUSTER and got.staged
     want = chip_smoke.expected_cluster_bwd_sizes(B, in_pad, H, L, substeps, TILE, CLUSTER)
     assert [got.tile, got.grid, got.scratch, got.partials] == list(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 16, 32, 64])
+def test_every_product_variant_built_for_the_widths_equals_the_generic_one(device, B, monkeypatch):
+    """Each variant the libraries build for the recipe's widths at this tile
+    width, forced, against the generic products: trajectory and every adjoint
+    leaf bitwise; the libraries report the variants chip_smoke.py's formula
+    gives."""
+    packed, idx, m = _case(device, B, "features")
+    pw = packed[5]
+    tw = fused_rk4._cluster_tile(B, TILE)
+    built = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw,
+                                   torch.cuda.current_device())[2]
+    assert built == chip_smoke.expected_products(pw.in_pad, pw.hidden, tw)
+    sizes = fused_rk4.bwd_sizes(B, 16, pw.in_pad, pw.hidden, pw.n_layers, SUBSTEPS)
+    assert sizes.products == built
+    runs = {}
+    for v, name in enumerate(fused_rk4.PRODUCTS):
+        if built >> v & 1:
+            monkeypatch.setattr(fused_rk4, "_cluster_products", lambda tw, built, v=v: v)
+            runs[name] = _both_routes(packed, idx, m, "f32")["cluster"]
+    assert set(runs) > {"generic"}
+    traj_g, leaves_g = runs.pop("generic")
+    for name, (traj, leaves) in runs.items():
+        assert torch.equal(traj, traj_g), f"{name}: trajectory differs by {_gap(traj, traj_g):.3e}"
+        differ = {n: _gap(leaves[n], leaves_g[n]) for n in leaves_g
+                  if not torch.equal(leaves[n], leaves_g[n])}
+        assert not differ, f"{name}: leaves differ from the generic products: {differ}"

@@ -20,7 +20,11 @@ What Python adds for that is tested here on the CPU:
     `_route`): the cluster route while the card runs a cluster per tile at
     once, its tile width, and that no public function took an argument for
     it (tests/test_torch_fused_rk4_cluster.py holds the
-    route itself on the card).
+    route itself on the card);
+  * the route's product variant (`_cluster_products`) from the tile width and
+    the variants the libraries build for the widths (chip_smoke.py's
+    `expected_products`, which the card holds the libraries to), and its
+    per-variant launch counters.
 """
 
 import inspect
@@ -33,10 +37,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import expected_bwd_sizes
+from chip_smoke import expected_bwd_sizes, expected_products
 from hybrid_ode_tpu.models import hybrid as jhyb
 from hybrid_ode_tpu.ops import pallas_rk4 as jfused
 from hybrid_ode_torch.ops import fused_rk4 as tfused
+from hybrid_ode_torch.utils import profiling
 from hybrid_ode_torch.utils.convert import params_from_numpy
 
 torch.set_num_threads(2)
@@ -246,3 +251,46 @@ PUBLIC_PARAMETERS = {
 def test_no_public_function_gains_an_argument_for_the_route(name):
     params = list(inspect.signature(getattr(tfused, name)).parameters)
     assert params == PUBLIC_PARAMETERS[name]
+
+
+@pytest.mark.parametrize("in_pad,H,tw,want", [
+    (32, 128, 4, "narrow"), (32, 128, 8, "narrow"), (32, 128, 12, "wide"), (32, 128, 16, "wide"),
+    (32, 128, 20, "wide"), (32, 128, 32, "wide"), (32, 128, 36, "wide"), (32, 128, 64, "wide"),
+    (16, 128, 4, "narrow"), (16, 128, 64, "wide"), (24, 128, 4, "generic"),
+    (40, 128, 32, "generic"), (32, 64, 4, "generic"), (32, 132, 32, "generic"),
+    (16, 20, 8, "generic")])
+def test_cluster_products_follow_the_tile_width_and_the_widths(in_pad, H, tw, want):
+    """The recipe's widths (H = 128, in_pad 32; 16 without context) take one
+    output a thread up to 8 samples and 2 x 2 tiles beyond; other widths the
+    generic products."""
+    assert tfused.PRODUCTS[tfused._cluster_products(tw, expected_products(in_pad, H, tw))] == want
+
+
+@pytest.mark.parametrize("built,tw,want", [
+    (0b001, 4, "generic"), (0b001, 64, "generic"), (0b011, 8, "narrow"), (0b011, 12, "generic"),
+    (0b101, 4, "wide"), (0b111, 8, "narrow"), (0b111, 16, "wide")])
+def test_cluster_products_take_only_a_variant_the_library_builds(built, tw, want):
+    assert tfused.PRODUCTS[tfused._cluster_products(tw, built)] == want
+
+
+@pytest.mark.parametrize("tw", range(4, TILE + 1, 4))
+def test_narrow_is_built_wherever_the_launcher_would_take_it(tw):
+    """'narrow' gives a 16-row slice's outputs a thread each, in whole warps:
+    the library builds it where they are at most the CTA's threads and tw is a
+    power of 2, which covers every tile width the launcher takes it at."""
+    built = expected_products(32, 128, tw)
+    assert bool(built & 2) == (tw in (4, 8, 16))
+    if tw <= tfused.NARROW_MAX_TILE:
+        assert built & 2
+
+
+def test_variant_counters_add_up_to_the_cluster_launches(monkeypatch):
+    names = ["fused_rk4_cluster_launches"] + [f"fused_rk4_cluster_{v}_launches"
+                                              for v in tfused.PRODUCTS]
+    for name in names:
+        monkeypatch.setattr(tfused, name, 0)
+    for v in (0, 1, 2, 2, 1, 2):
+        tfused._count_cluster(v)
+    assert [getattr(tfused, n) for n in names] == [6, 1, 2, 3]
+    registered = set(profiling.counters())
+    assert {f"fused_rk4.{n}" for n in names} <= registered
