@@ -64,10 +64,8 @@ the last line:
                 adjoint timed (CUDA events), the plain versions once, the
                 bounds at those shapes; the route and cluster size the
                 adjoint's library reports for the recipe's batch; the
-                product variant the route takes at each shape ('wide' at
-                tw=32, 'narrow' at tw=4) against its generic products
-                (forced): bitwise equal, both timed, and the variants the
-                libraries build there equal expected_products'
+                product variant both libraries take at each shape ('wide'
+                at tw=32, 'narrow' at tw=4) is expected_products'
   4. main     - the serving path with every launch count at 0: evaluate the
                 checkpoint (use_pallas) on the seed-42 test split against the
                 JAX package's CPU metrics, then simulate the 8192 cohort with
@@ -1274,15 +1272,16 @@ def expected_cluster_bwd_sizes(B, in_pad, H, L, substeps, tile, cluster):
     return tw, -(-B // tw), scratch, partials
 
 
-def expected_products(in_pad, H, tw, tiled_h=128, cluster=8, threads=256):
-    """The cluster route's product variants the libraries build for these
-    widths at tile width tw, from csrc/fused_rk4_wide.cuh's `products_fit`:
-    bit v for fused_rk4.PRODUCTS[v]. 'generic' always; 'narrow' and 'wide'
-    at H = 128 with in_pad 16 or 32, 'narrow' where tw is a power of 2 and a
-    CTA's 16 rows x tw outputs are at most its threads."""
-    tiled = H == tiled_h and in_pad in (16, 32)
-    narrow = tiled and (tiled_h // cluster) * tw <= threads and tw & (tw - 1) == 0
-    return 1 | narrow << 1 | tiled << 2
+def expected_products(in_pad, H, tw):
+    """The cluster route's product variant the libraries launch for these
+    widths at tile width tw, from csrc/fused_rk4_wide.cuh's
+    `cluster_products`: a name in fused_rk4.PRODUCTS, or None where no
+    variant runs the widths (they take the wide route). The variants are
+    built at H = 128 with in_pad 16 or 32: 'narrow' up to 8 samples, 'wide'
+    beyond."""
+    if H != 128 or in_pad not in (16, 32):
+        return None
+    return "narrow" if tw <= 8 else "wide"
 
 
 def one_day(packed, T=289, hours=24.0):
@@ -1298,37 +1297,10 @@ def one_day(packed, T=289, hours=24.0):
             None if ctx_t is None else ctx_t[:, :1].contiguous(), pw, pvec)
 
 
-@contextlib.contextmanager
-def forced_products(variant):
-    """Inside, every cluster-route launch takes fused_rk4.PRODUCTS[variant]
-    (None: the launcher's choice), whatever the tile width."""
-    rule = fused_rk4._cluster_products
-    if variant is not None:
-        fused_rk4._cluster_products = lambda tw, built: variant
-    try:
-        yield
-    finally:
-        fused_rk4._cluster_products = rule
-
-
-def generic_products(p, gbar, traj, reps):
-    """The cluster route on inputs p with its generic products forced
-    (fused_rk4.PRODUCTS[0]): (trajectory, adjoint leaves of the cotangent
-    gbar at trajectory traj, (forward ms, adjoint ms))."""
-    with forced_products(0), torch.no_grad():
-        fwd = lambda: fused_rk4._fwd_cuda(*p, SUBSTEPS, route="cluster")  # noqa: E731
-        bwd = lambda: fused_rk4._bwd_cuda(traj, gbar, *p[1:], SUBSTEPS,  # noqa: E731
-                                          route="cluster")
-        out = fwd(), bwd_leaves(bwd(), p[5]), (time_ms(fwd, 1, reps), time_ms(bwd, 1, reps))
-        torch.cuda.synchronize()
-    return out
-
-
 def cluster_phase(packed, nn, n_layers, hidden, smi):
     """Phase 3e: the cluster route against the wide route, both forced, and
-    both timed, at the recipe's batch and at online adaptation's B=1; the
-    product variant the route takes there against its generic products,
-    bitwise and timed."""
+    both timed, at the recipe's batch and at online adaptation's B=1, in the
+    product variant the libraries take there."""
     T_cohort = packed[1].shape[0]
     C = packed[4].shape[0]
     head = (packed[0][:32].contiguous(), *(x[:, :32].contiguous() for x in packed[1:5]),
@@ -1361,21 +1333,17 @@ def cluster_phase(packed, nn, n_layers, hidden, smi):
             fail(f"the cluster route differs from the wide route at {name}")
         pw = p[5]
         tw = fused_rk4._cluster_tile(B, fused_rk4.fwd_tile())
-        built = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw,
-                                       torch.cuda.current_device())[2]
-        if built != expected_products(pw.in_pad, pw.hidden, tw):
-            fail(f"the library builds products {built:#b} at tw={tw}, the formula "
-                 f"{expected_products(pw.in_pad, pw.hidden, tw):#b}")
-        chosen = fused_rk4.PRODUCTS[fused_rk4._cluster_products(tw, built)]
-        g_traj, g_leaves, g_times = generic_products(p, gbar, traj["cluster"], reps)
-        g_same = torch.equal(g_traj, traj["cluster"]) and all(
-            torch.equal(g_leaves[n], leaves["cluster"][n]) for n in g_leaves)
-        print(f"cluster (3e) ({smi}) {name}: products '{chosen}' at tw={tw} against 'generic' "
-              f"(forced): {'bitwise equal ok' if g_same else 'DIFFER FAIL'}; forward "
-              f"{times['cluster'][0]:.3f} ms against {g_times[0]:.3f}, hand adjoint "
-              f"{times['cluster'][1]:.3f} ms against {g_times[1]:.3f}")
-        if not g_same:
-            fail(f"products '{chosen}' differ from the generic ones at {name}")
+        chosen = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw,
+                                        torch.cuda.current_device())[2]
+        bwd_chosen = fused_rk4.bwd_sizes(B, C, pw.in_pad, pw.hidden, pw.n_layers,
+                                         SUBSTEPS).products
+        want = expected_products(pw.in_pad, pw.hidden, tw)
+        same = chosen == bwd_chosen == want
+        print(f"cluster (3e) {name}: products '{chosen}' (forward) and '{bwd_chosen}' (adjoint) "
+              f"at tw={tw}, the formula '{want}' {'ok' if same else 'FAIL'}")
+        if not same:
+            fail(f"the libraries take products '{chosen}' / '{bwd_chosen}' at tw={tw}, the "
+                 f"formula '{want}'")
         # the cluster route against the plain versions at phase 3 / 3b's
         # full-width limits (the adjoint with 3b's f64 escape)
         label = f"cluster route (3e) {name} (B={B} T={T})"
@@ -1398,8 +1366,7 @@ def cluster_phase(packed, nn, n_layers, hidden, smi):
         out[name] = {"B": B, "T": T, "fwd_ms": {r: t[0] for r, t in times.items()},
                      "bwd_ms": {r: t[1] for r, t in times.items()},
                      "plain_ms": {"fwd": plain_fwd, "bwd": plain_bwd}, "plain_max_abs": gaps,
-                     "bound_ms": {"fwd": fwd_b[0], "bwd": bwd_b[0]}, "products": chosen,
-                     "generic_ms": {"fwd": g_times[0], "bwd": g_times[1]}}
+                     "bound_ms": {"fwd": fwd_b[0], "bwd": bwd_b[0]}, "products": chosen}
         print(f"cluster (3e) ({smi}) {name}: forward wide {times['wide'][0]:.3f} ms, cluster "
               f"{times['cluster'][0]:.3f} ms (bound {fwd_b[0]:.4f} ms by {fwd_b[1]}, plain "
               f"{plain_fwd:.1f} ms once); hand adjoint wide {times['wide'][1]:.3f} ms, cluster "

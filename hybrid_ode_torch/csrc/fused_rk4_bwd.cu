@@ -74,8 +74,9 @@
 //     cotangents and feature-mode context cotangents in shared memory.
 //
 // Small batches take the cluster route (`fused_rk4_bwd_kernel_cluster`, the
-// caller chooses; fused_rk4_wide.cuh): one tile of min(64, B rounded up to
-// 4) samples on a cluster of 8 CTAs. Phases 1 and 2 split every product, the
+// caller chooses the route; fused_rk4_wide.cuh): one tile of min(64, B
+// rounded up to 4) samples on a cluster of 8 CTAs, at H = 128 with in_pad 16
+// or 32 (other widths take the wide route). Phases 1 and 2 split every product, the
 // forward ones and the transposed ones, by output rows, each CTA keeping its
 // slices of both weight copies resident; phase 3 gives each CTA the weight
 // and bias cotangents of its own output columns over the interval's
@@ -84,11 +85,11 @@
 // wide route's column groups (bias_sums) in its order, so every output
 // equals the wide route's bitwise. Between phases, a cluster barrier; ReLU
 // masks stay per CTA in scratch. Phases 1 and 2 take the forward's product
-// variants (fused_rk4_wide.cuh, Products; the caller picks the same one), the
-// transposed products of a width on the tiles of the forward product of that
-// width, so that each thread reads back the masks it wrote. With the tiled
-// variants, phase 3 is about 35% of the route's time at B = 32 and 30% at
-// B = 1; before them about 30% and 20% (measured, PERF.md section 6).
+// variants (fused_rk4_wide.cuh, Products; the library takes the same one for
+// the same widths), the transposed products of a width on the tiles of the
+// forward product of that width, so that each thread reads back the masks it
+// wrote. Phase 3 is about 35% of the route's time at B = 32 and 30% at B = 1
+// (measured, PERF.md section 6).
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): both
 // operands of every product, forward and transposed, are rounded to bf16 at
@@ -709,18 +710,17 @@ struct ClusterLayout {
 // keeps, whole launch, its slices of the forward weights ((in_pad + (L-1) H) x
 // ceil(H / CLUSTER)), the last layer whole (H x 8, every CTA computes the
 // 8-row residual), its biases and its slices of the transposed copy ((8 +
-// (L-1) H) x ceil(H / CLUSTER) + H x ceil(in_pad / CLUSTER)); then, tw floats
-// a row, X, Ha, Hb, dX, the residual, P, dP, the stage-state and context
-// cotangents; NTHREADS floats of bias group sums; phase 3's ring of two
-// buffers, (max(in_pad, H) + ceil(H / CLUSTER)) rows of 36 floats each; the
-// exchange's mbarriers. Each slice has room for the generic layout and the
-// tiled one (slice_floats). At H = 128, in_pad = 32, C = 16, L = 4: 59 KB of
-// weights, 201 KB in all at tw = 64, 151 KB at tw = 32. Scratch per cluster:
-// the wide route's operand rows at tw columns (each row written by the CTA
-// that owns it) and every CTA's ReLU masks, one word per thread tile.
+// (L-1) H) x ceil(H / CLUSTER) + H x ceil(in_pad / CLUSTER)), each row padded
+// by 4 floats (slice_floats); then, tw floats a row, X, Ha, Hb, dX, the
+// residual, P, dP, the stage-state and context cotangents; NTHREADS floats of
+// bias group sums; phase 3's ring of two buffers, (max(in_pad, H) + ceil(H /
+// CLUSTER)) rows of 36 floats each; the exchange's mbarriers. At H = 128,
+// in_pad = 32, C = 16, L = 4: 59 KB of weights, 201 KB in all at tw = 64, 151
+// KB at tw = 32. Scratch per cluster: the wide route's operand rows at tw
+// columns (each row written by the CTA that owns it) and every CTA's ReLU
+// masks, one word per 1 x 4 samples of its rows.
 int bwd_cluster_layout(int C, int in_pad, int H, int L, int substeps, int tw, ClusterLayout* lay) {
   const int nh = split_max(H), nr = split_max(NOUT);
-  // every slice with room for either layout of the product variants (slice_floats)
   const size_t wts = (size_t)slice_floats(in_pad, H) + (size_t)(L - 1) * slice_floats(H, H) +
                      (size_t)slice_ld(H) * NOUT + cluster_bias_floats(H, L) +
                      (size_t)slice_floats(NOUT, H) + (size_t)(L - 1) * slice_floats(H, H) +
@@ -740,9 +740,10 @@ int bwd_cluster_layout(int C, int in_pad, int H, int L, int substeps, int tw, Cl
 // The wide kernel's function on the cluster's partition. Every CTA holds the
 // tile's per-sample state (thread tid < tw owns sample tile * tw + tid) and
 // computes it alike; CTA 0 writes the per-sample outputs. V: the product
-// variant (fused_rk4_wide.cuh, Products); phase 2's transposed products of
-// layer p's width take the tiles of phase 1's product of it, so a thread
-// reads back the ReLU masks it wrote.
+// variant (fused_rk4_wide.cuh, Products), built for H = TILED_H, which the
+// library alone launches; H stays an argument, as in the forward's kernel.
+// Phase 2's transposed products of layer p's width take the tiles of phase
+// 1's product of it, so a thread reads back the ReLU masks it wrote.
 template <bool BF16, int V>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
 fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
@@ -772,15 +773,14 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
   using TT = TileOf<V, TILED_NL>;  // tiles of the hidden products
   using TL = TileOf<V, NOUT>;      // of the last layer
   using T0 = TileOf<V, 1>;         // of the product into dX
-  constexpr bool TILED = V != PRODUCTS_GENERIC;
-  // slices [K][rows] (generic) or [rows][slice_ld(K)] (tiled)
+  // slices [rows][slice_ld(K)]
   float* Wf = reinterpret_cast<float*>(smem4);     // forward slices, a layer each
   float* WL = Wf + slice_floats(in_pad, H) + (L - 1) * slice_floats(H, H);  // the last layer, whole
   float* Bs = WL + slice_ld(H) * NOUT;             // biases: [L][nh] this CTA's rows, the last 8
   float* Wt = Bs + cluster_bias_floats(H, L);      // transposed slices, products L .. 1 then 0
   float* X = Wt + slice_floats(NOUT, H) + (L - 1) * slice_floats(H, H) +
              slice_floats(H, in_pad);              // [in_pad][tw]
-  float* Ha = X + in_pad * tw;                     // [H][tw] (tiled: [H / 4][tw][4])
+  float* Ha = X + in_pad * tw;                     // [H / 4][tw][4]
   float* Hb = Ha + H * tw;                         // the same
   float* dX = Hb + H * tw;                         // [in_pad][tw] the features' cotangent
   float* R = dX + in_pad * tw;                     // [NOUT][tw] residual / stage cotangent
@@ -825,20 +825,13 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
     for (int i = tid; i < K * nn; i += NTHREADS) D[(i / nn) * N + n_lo + i % nn] = 0.f;
     for (int i = tid; i < nn; i += NTHREADS) part[bias_off + l * H + n_lo + i] = 0.f;
   }
-  // the weight slices: load_rows' layout on the tiled variants, load_slice's else
-  auto slice = [&](float* dst, const float* src, int ldw, int K, int lo_, int n_own) {
-    if constexpr (TILED) load_rows(dst, src, ldw, K, lo_, n_own);
-    else load_slice(dst, src, ldw, K, lo_, n_own);
-  };
   for (int l = 0; l < L; ++l)
-    slice(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
-  if constexpr (TILED) load_rows(WL, wpack + layer_offset(L, in_pad, H), NOUT, H, 0, NOUT);
-  else
-    for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[layer_offset(L, in_pad, H) + i];
+    load_rows(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
+  load_rows(WL, wpack + layer_offset(L, in_pad, H), NOUT, H, 0, NOUT);
   load_biases(Bs, bias0, H, L, lo, nl);
   for (int p = L; p >= 1; --p)
-    slice(wt(p), wt0 + layer_offset(p, in_pad, H), H, p == L ? NOUT : H, lo, nl);
-  slice(wt(0), wt0, in_pad, H, lo0, nl0);
+    load_rows(wt(p), wt0 + layer_offset(p, in_pad, H), H, p == L ? NOUT : H, lo, nl);
+  load_rows(wt(0), wt0, in_pad, H, lo0, nl0);
   for (int i = tid; i < in_pad * tw; i += NTHREADS) X[i] = 0.f;
   for (int i = tid; i < C * tw; i += NTHREADS) dCs[i] = 0.f;
   __syncthreads();
@@ -913,52 +906,37 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
           reinterpret_cast<float4*>(at)[lo0 * sqn + e] =
               reinterpret_cast<const float4*>(X)[lo0 * sqn + e];
         const float* in = X;
-        int K = in_pad;
         for (int l = 0; l < L; ++l) {
           float* dst = (l & 1) ? Hb : Ha;
           const float* bias = Bs + l * nh;
           float* at_l = at + (in_pad + l * H) * tw;
           unsigned* mk = masks + (size_t)(stage * L + l) * mask_words;
-          if constexpr (TILED) {
-            auto epi = [&](int tt, int n0, int s0, float (&acc)[TT::RT][TT::CT], int) {
-              TT::put_mask(mk, tt, cl_bias_relu(acc, bias, n0));
-              cl_store_ilv(dst, tw, lo + n0, s0, acc);
-              cl_store(at_l, tw, lo + n0, s0, acc);
-            };
-            if (l)
-              cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wf(l), in, unhoisted(tw), NoTag(), epi);
-            else if (in_pad == 32)
-              cl_dense<BF16, 32, TILED_NL, TT, false>(wf(0), X, unhoisted(tw), NoTag(), epi);
-            else
-              cl_dense<BF16, 16, TILED_NL, TT, false>(wf(0), X, unhoisted(tw), NoTag(), epi);
-          } else {
-            dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
-                             [&](int tt, int n0, int sq, int rows, float (&acc)[1][4], int) {
-                               mk[tt] = bias_relu<1, true>(acc, bias, n0, rows);
-                               store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
-                               store_tile<1>(at_l, sqn, lo + n0, sq, rows, acc);
-                             });
-          }
+          auto epi = [&](int tt, int n0, int s0, float (&acc)[TT::RT][TT::CT], int) {
+            TT::put_mask(mk, tt, cl_bias_relu(acc, bias, n0));
+            cl_store_ilv(dst, tw, lo + n0, s0, acc);
+            cl_store(at_l, tw, lo + n0, s0, acc);
+          };
+          if (l)
+            cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wf(l), in, unhoisted(tw), NoTag(), epi);
+          else if (in_pad == 32)
+            cl_dense<BF16, 32, TILED_NL, TT, false>(wf(0), X, unhoisted(tw), NoTag(), epi);
+          else
+            cl_dense<BF16, 16, TILED_NL, TT, false>(wf(0), X, unhoisted(tw), NoTag(), epi);
           pr.lap(l ? PP_HIDDEN : PP_LAYER0);
           ex.publish(dst + lo * tw, l & 1, 4 * nl * tw);
           ex.wait(l & 1, 4 * (H - nl) * tw);  // the layer's rows are in every CTA; `in` is free
           pr.lap(PP_EXCHANGE, false);
           in = dst;
-          K = H;
         }
-        if constexpr (TILED)
-          cl_dense<BF16, TILED_H, NOUT, TL, true>(
-              WL, in, unhoisted(tw), NoTag(),
-              [&](int, int n0, int s0, float (&acc)[TL::RT][TL::CT], int) {
+        cl_dense<BF16, TILED_H, NOUT, TL, true>(
+            WL, in, unhoisted(tw), NoTag(),
+            [&](int, int n0, int s0, float (&acc)[TL::RT][TL::CT], int) {
 #pragma unroll
-                for (int i = 0; i < TL::RT; ++i)
+              for (int i = 0; i < TL::RT; ++i)
 #pragma unroll
-                  for (int j = 0; j < TL::CT; ++j)
-                    acc[i][j] = acc[i][j] + Bs[L * nh + n0 + i];
-                cl_store(R, tw, n0, s0, acc);
-              });
-        else
-          dense_out_tw<BF16>(WL, Bs + L * nh, in, R, K, tw);
+                for (int j = 0; j < TL::CT; ++j) acc[i][j] = acc[i][j] + Bs[L * nh + n0 + i];
+              cl_store(R, tw, n0, s0, acc);
+            });
         pr.lap(PP_LAST);
         // with L odd the last layer read Ha, which the next stage's first product fills
         if (L & 1) cluster_barrier();
@@ -1006,59 +984,39 @@ fused_rk4_bwd_kernel_cluster(const float* __restrict__ traj,  // (T, 6, B)
         // of its input's, u = W_p g; masked by layer p - 1's ReLU it is the next g
         const float* g = R;
         for (int p = L; p >= 0; --p) {
-          const int Kc = p == L ? NOUT : H;  // contraction: layer p's outputs
           if (p > 0) {
             float* gz = ((p - 1) & 1) ? Hb : Ha;
             float* gt_l = gt + (p - 1) * H * tw;
             const unsigned* mk = masks + (size_t)(stage * L + p - 1) * mask_words;
-            if constexpr (TILED) {
-              auto pre = [&](int tt) { return TT::mask(mk, tt); };
-              auto epi = [&](int, int n0, int s0, float (&acc)[TT::RT][TT::CT], unsigned bits) {
+            auto pre = [&](int tt) { return TT::mask(mk, tt); };
+            auto epi = [&](int, int n0, int s0, float (&acc)[TT::RT][TT::CT], unsigned bits) {
 #pragma unroll
-                for (int i = 0; i < TT::RT; ++i)
+              for (int i = 0; i < TT::RT; ++i)
 #pragma unroll
-                  for (int j = 0; j < TT::CT; ++j)
-                    acc[i][j] *= (bits >> (TT::CT * i + j)) & 1u ? 1.f : 0.f;
-                cl_store_ilv(gz, tw, lo + n0, s0, acc);
-                cl_store(gt_l, tw, lo + n0, s0, acc);
-              };
-              if (p == L)
-                cl_dense<BF16, NOUT, TILED_NL, TT, false>(wt(p), g, unhoisted(tw), pre, epi);
-              else
-                cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wt(p), g, unhoisted(tw), pre, epi);
-            } else {
-              dense_w<BF16, 1>(wt(p), nl, g, sqn, Kc, nl, [&](int tt) { return mk[tt]; },
-                               [&](int, int n0, int sq, int rows, float (&acc)[1][4],
-                                   unsigned bits) {
-#pragma unroll
-                                 for (int jj = 0; jj < 4; ++jj)
-                                   acc[0][jj] *= (bits >> jj) & 1u ? 1.f : 0.f;
-                                 store_tile<1>(gz, sqn, lo + n0, sq, rows, acc);
-                                 store_tile<1>(gt_l, sqn, lo + n0, sq, rows, acc);
-                               });
-            }
+                for (int j = 0; j < TT::CT; ++j)
+                  acc[i][j] *= (bits >> (TT::CT * i + j)) & 1u ? 1.f : 0.f;
+              cl_store_ilv(gz, tw, lo + n0, s0, acc);
+              cl_store(gt_l, tw, lo + n0, s0, acc);
+            };
+            if (p == L)
+              cl_dense<BF16, NOUT, TILED_NL, TT, false>(wt(p), g, unhoisted(tw), pre, epi);
+            else
+              cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wt(p), g, unhoisted(tw), pre, epi);
             pr.lap(p == L ? PP_T_FIRST : PP_T_HIDDEN);
             ex.publish(gz + lo * tw, (p - 1) & 1, 4 * nl * tw);
             ex.wait((p - 1) & 1, 4 * (H - nl) * tw);
             pr.lap(PP_T_EXCHANGE, false);
             g = gz;
           } else {
-            if constexpr (TILED) {
-              auto epi = [&](int, int n0, int s0, float (&acc)[T0::RT][T0::CT], int) {
-                cl_store(dX, tw, lo0 + n0, s0, acc);
-              };
-              if (in_pad == 32)
-                cl_dense<BF16, TILED_H, 32 / CLUSTER, T0, true>(wt(0), g, unhoisted(tw), NoTag(),
-                                                                 epi);
-              else
-                cl_dense<BF16, TILED_H, 16 / CLUSTER, T0, true>(wt(0), g, unhoisted(tw), NoTag(),
-                                                                 epi);
-            } else {
-              dense_w<BF16, 1>(wt(0), nl0, g, sqn, Kc, nl0, NoTag(),
-                               [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
-                                 store_tile<1>(dX, sqn, lo0 + n0, sq, rows, acc);
-                               });
-            }
+            auto epi = [&](int, int n0, int s0, float (&acc)[T0::RT][T0::CT], int) {
+              cl_store(dX, tw, lo0 + n0, s0, acc);
+            };
+            if (in_pad == 32)
+              cl_dense<BF16, TILED_H, 32 / CLUSTER, T0, true>(wt(0), g, unhoisted(tw), NoTag(),
+                                                               epi);
+            else
+              cl_dense<BF16, TILED_H, 16 / CLUSTER, T0, true>(wt(0), g, unhoisted(tw), NoTag(),
+                                                               epi);
             pr.lap(PP_T_INPUT);
             ex.publish(dX + lo0 * tw, 2, 4 * nl0 * tw);
             ex.wait(2, 4 * (in_pad - nl0) * tw);
@@ -1162,10 +1120,12 @@ cudaError_t launch_cluster(const ClusterLayout& lay, int clusters, cudaStream_t 
 //   sizes[3]  floats of `partials` per slice (the packed weights and biases)
 //   sizes[4]  1 when the weights are staged through, or kept in, shared memory
 //   sizes[5]  CTAs per slice: 1, or CLUSTER on the cluster route
-//   sizes[6]  1 when a block's (a CTA's) shared memory holds these widths
+//   sizes[6]  1 when a block's shared memory holds these widths; on the
+//             cluster route, when a product variant runs them at tw and a
+//             CTA's shared memory holds them (else they take the wide route)
 //   sizes[7]  on the cluster route, the clusters the card runs at once
-//   sizes[8]  on the cluster route, the product variants built for these
-//             widths at tw (bit v for Products v, products_fit)
+//   sizes[8]  on the cluster route, the variant it launches (Products;
+//             PRODUCTS_NONE where none runs these widths)
 extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers, int substeps,
                                   int bf16, int tw, long long* sizes) {
   if (B < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad < 4 || in_pad % 4 != 0 || n_layers < 1 ||
@@ -1174,19 +1134,23 @@ extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers,
   sizes[3] = layer_offset(n_layers, in_pad, H) + H * NOUT + n_layers * H + NOUT;
   if (tw) {
     ClusterLayout cl;
-    sizes[6] = bwd_cluster_layout(C, in_pad, H, n_layers, substeps, tw, &cl) == 0;
+    const int products = cluster_products(in_pad, H, tw);
+    sizes[6] = products != PRODUCTS_NONE &&
+               bwd_cluster_layout(C, in_pad, H, n_layers, substeps, tw, &cl) == 0;
     sizes[0] = tw;
     sizes[1] = (B + tw - 1) / tw;
-    sizes[2] = cl.scratch;
+    sizes[2] = sizes[6] ? cl.scratch : 0;
     sizes[4] = 1;
     sizes[5] = CLUSTER;
     sizes[7] = 0;
-    sizes[8] = 0;
-    for (int v = 0; v < PRODUCTS_N; ++v) sizes[8] |= (long long)products_fit(v, in_pad, H, tw) << v;
+    sizes[8] = products;
     if (!sizes[6]) return 0;
     int clusters = 0;
+    const size_t smem = cl.smem;
     const cudaError_t err =
-        max_clusters(fused_rk4_bwd_kernel_cluster<false, PRODUCTS_GENERIC>, cl.smem, &clusters);
+        products == PRODUCTS_NARROW
+            ? max_clusters(fused_rk4_bwd_kernel_cluster<false, PRODUCTS_NARROW>, smem, &clusters)
+            : max_clusters(fused_rk4_bwd_kernel_cluster<false, PRODUCTS_WIDE>, smem, &clusters);
     sizes[7] = clusters;
     return (int)err;
   }
@@ -1209,26 +1173,27 @@ extern "C" int fused_rk4_bwd_grid(int B, int C, int in_pad, int H, int n_layers,
 
 // wpack: the packed weights and biases (n_w floats), then every layer's
 // weights once more transposed, (out, in) row-major, in the layers' order.
-// tw: 0 for the wide route, else the cluster route with tiles of tw samples
-// and its product variant `products` (Products; products_fit); grid: the
-// slices fused_rk4_bwd_grid reported for it. The caller chooses
-// (hybrid_ode_torch/ops/fused_rk4.py).
+// tw: 0 for the wide route, else the cluster route with tiles of tw samples,
+// where fused_rk4_bwd_grid says it fits; grid: the slices fused_rk4_bwd_grid
+// reported for it. The caller chooses (hybrid_ode_torch/ops/fused_rk4.py).
+// The cluster route's product variant follows from the widths
+// (cluster_products).
 extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* ts,
                              const float* meal, const float* tvns, const float* ctx,
                              const float* wpack, const float* pvec, const int* cidx,
                              float* ybar0, float* dp, float* dctx, float* dflat,
                              float* partials, float* scratch, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps, int n_cp,
-                             int abs_mode, int bf16, int grid, int n_w, int tw, int products,
-                             void* stream) {
+                             int abs_mode, int bf16, int grid, int n_w, int tw, void* stream) {
+  const int products = tw ? cluster_products(in_pad, H, tw) : PRODUCTS_NONE;
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && (!ctx || !dctx)) ||
       (n_cp && !cidx) || grid < 1 ||
       n_w != in_pad * H + (n_layers - 1) * H * H + H * NOUT + n_layers * H + NOUT ||
       (long long)T * NS * B > 0x7fffffffLL ||  // int offsets
-      tw < 0 || tw > WTILE || tw % 4 != 0 || (tw && grid != (B + tw - 1) / tw) ||
-      products < 0 || products >= PRODUCTS_N || (tw && !products_fit(products, in_pad, H, tw)))
+      tw < 0 || tw > WTILE || tw % 4 != 0 ||
+      (tw && (grid != (B + tw - 1) / tw || products == PRODUCTS_NONE)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
@@ -1244,12 +1209,9 @@ extern "C" int fused_rk4_bwd(const float* traj, const float* gbar, const float* 
     if (products == PRODUCTS_NARROW)
       err = bf16 ? go(launch_cluster<true, PRODUCTS_NARROW>)
                  : go(launch_cluster<false, PRODUCTS_NARROW>);
-    else if (products == PRODUCTS_WIDE)
+    else
       err = bf16 ? go(launch_cluster<true, PRODUCTS_WIDE>)
                  : go(launch_cluster<false, PRODUCTS_WIDE>);
-    else
-      err = bf16 ? go(launch_cluster<true, PRODUCTS_GENERIC>)
-                 : go(launch_cluster<false, PRODUCTS_GENERIC>);
   } else {
     Layout lay;
     if (bwd_layout(C, in_pad, H, n_layers, substeps, &lay)) return (int)cudaErrorInvalidValue;

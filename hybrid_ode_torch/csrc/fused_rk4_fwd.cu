@@ -45,18 +45,18 @@
 //   * Lanes past B are masked (no loads, no stores), not padded.
 //
 // Small batches take the cluster route (`fused_rk4_fwd_kernel_cluster`,
-// fused_rk4_wide.cuh; the caller chooses): a tile of min(64, B rounded up
-// to 4) samples on a cluster of 8 CTAs, each owning 16 of the 128 rows of
-// every hidden layer at H = 128 with its weight slices resident, exchanging
-// its rows after each product. At B = 32 the wide route runs one block on
-// one of 132 SMs (half its lanes dead) and takes as long as at B = 8192;
-// there the bound is not the card's peak but the chain of 128 dependent fmaf
-// a product and its exchange, 5 a stage. The kernel is built in three
-// product variants (template argument V; fused_rk4_wide.cuh, Products): the
-// generic one for any widths, and at H = 128 'narrow' (an output a thread)
-// and 'wide' (2 x 2 tiles), which the caller takes at small and larger tile
-// widths. The route's outputs equal the wide route's bitwise in every
-// variant: every pre-activation is the same k-ascending chain.
+// fused_rk4_wide.cuh; the caller chooses the route): a tile of min(64, B
+// rounded up to 4) samples on a cluster of 8 CTAs, each owning 16 of the 128
+// rows of every hidden layer with its weight slices resident, exchanging its
+// rows after each product. At B = 32 the wide route runs one block on one of
+// 132 SMs (half its lanes dead) and takes as long as at B = 8192; there the
+// bound is not the card's peak but the chain of 128 dependent fmaf a product
+// and its exchange, 5 a stage. The kernel is built for H = 128 with in_pad 16
+// or 32, in two product variants (template argument V; fused_rk4_wide.cuh,
+// Products): 'narrow' (an output a thread) and 'wide' (2 x 2 tiles), which
+// the library takes at small and larger tile widths (cluster_products). The
+// route's outputs equal the wide route's bitwise in both: every
+// pre-activation is the same k-ascending chain.
 //
 // mlp_dtype='bf16' is the template argument BF16 (fused_rk4_common.cuh): the
 // products read their activations rounded to bf16 and `wpack` holds weights
@@ -226,8 +226,7 @@ cudaError_t launch(size_t smem, int grid, cudaStream_t stream, const float* y0,
 
 // Bytes of shared memory of a CTA on the cluster route: the slices of the
 // hidden layers it owns, the whole last layer, its biases, then X, Ha, Hb
-// and R at tw floats a row, then the exchange's mbarriers. The slices have
-// room for either layout of every product variant (slice_floats).
+// and R at tw floats a row, then the exchange's mbarriers.
 size_t fwd_cluster_smem(int in_pad, int H, int n_layers, int tw) {
   const size_t wts = (size_t)slice_floats(in_pad, H) + (size_t)(n_layers - 1) * slice_floats(H, H) +
                      (size_t)slice_ld(H) * NOUT + cluster_bias_floats(H, n_layers);
@@ -237,7 +236,10 @@ size_t fwd_cluster_smem(int in_pad, int H, int n_layers, int tw) {
 // The wide kernel's function on the cluster's partition. Every CTA holds the
 // tile's per-sample state (thread tid < tw owns sample tile * tw + tid) and
 // computes it alike; CTA 0 writes the trajectory. V: the product variant
-// (fused_rk4_wide.cuh, Products).
+// (fused_rk4_wide.cuh, Products), built for H = TILED_H, which the library
+// alone launches. H stays an argument: as a constant it made the compiler's
+// code for both cluster kernels slower, the adjoint's by 4% at B = 1
+// (PERF.md section 6).
 template <bool BF16, int V>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
 fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
@@ -254,17 +256,16 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
   extern __shared__ float4 smem4[];
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int L = n_layers, nmax = split_max(H), sqn = tw / 4;
+  const int L = n_layers, nmax = split_max(H);
   const int lo = split_lo(H, rank), nl = split_lo(H, rank + 1) - lo;  // this CTA's rows
   using TT = TileOf<V, TILED_NL>;  // tiles of the hidden products
   using TL = TileOf<V, NOUT>;      // of the last layer
-  constexpr bool TILED = V != PRODUCTS_GENERIC;
-  // per layer [K][nl] (generic) or [nl][slice_ld(K)] (tiled), K = in_pad, H, ...
+  // per layer [nl][slice_ld(K)], K = in_pad, H, ...
   float* Wf = reinterpret_cast<float*>(smem4);
   float* WL = Wf + slice_floats(in_pad, H) + (L - 1) * slice_floats(H, H);  // the last layer, whole
   float* Bs = WL + slice_ld(H) * NOUT;             // biases: [L][nmax] this CTA's rows, the last 8
   float* X = Bs + cluster_bias_floats(H, L);       // [in_pad][tw]
-  float* Ha = X + in_pad * tw;                     // [H][tw] (tiled: [H / 4][tw][4])
+  float* Ha = X + in_pad * tw;                     // [H / 4][tw][4]
   float* Hb = Ha + H * tw;                         // the same
   float* R = Hb + H * tw;                          // [NOUT][tw]
   Exchange ex;                                     // mbarriers of Ha and Hb
@@ -280,14 +281,9 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
   const bool writer = valid && rank == 0;
   const int L_off = layer_offset(L, in_pad, H);
 
-  for (int l = 0; l < L; ++l) {
-    const float* src = wpack + layer_offset(l, in_pad, H);
-    if constexpr (TILED) load_rows(wf(l), src, H, l == 0 ? in_pad : H, lo, nl);
-    else load_slice(wf(l), src, H, l == 0 ? in_pad : H, lo, nl);
-  }
-  if constexpr (TILED) load_rows(WL, wpack + L_off, NOUT, H, 0, NOUT);
-  else
-    for (int i = tid; i < H * NOUT; i += NTHREADS) WL[i] = wpack[L_off + i];
+  for (int l = 0; l < L; ++l)
+    load_rows(wf(l), wpack + layer_offset(l, in_pad, H), H, l == 0 ? in_pad : H, lo, nl);
+  load_rows(WL, wpack + L_off, NOUT, H, 0, NOUT);
   load_biases(Bs, wpack + L_off + H * NOUT, H, L, lo, nl);
   for (int i = tid; i < in_pad * tw; i += NTHREADS) X[i] = 0.f;
   __syncthreads();
@@ -344,48 +340,33 @@ fused_rk4_fwd_kernel_cluster(const float* __restrict__ y0,    // (B, 6)
         __syncthreads();
         pr.lap(PP_DRIFT, false);
         const float* in = X;
-        int K = in_pad;
         for (int l = 0; l < L; ++l) {
           float* dst = (l & 1) ? Hb : Ha;
           const float* bias = Bs + l * nmax;
-          if constexpr (TILED) {
-            auto epi = [&](int, int n0, int s0, float (&acc)[TT::RT][TT::CT], int) {
-              cl_bias_relu(acc, bias, n0);
-              cl_store_ilv(dst, tw, lo + n0, s0, acc);
-            };
-            if (l)
-              cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wf(l), in, tw, NoTag(), epi);
-            else if (in_pad == 32)
-              cl_dense<BF16, 32, TILED_NL, TT, false>(wf(0), X, tw, NoTag(), epi);
-            else
-              cl_dense<BF16, 16, TILED_NL, TT, false>(wf(0), X, tw, NoTag(), epi);
-          } else {
-            dense_w<BF16, 1>(wf(l), nl, in, sqn, K, nl, NoTag(),
-                             [&](int, int n0, int sq, int rows, float (&acc)[1][4], int) {
-                               bias_relu<1, true>(acc, bias, n0, rows);
-                               store_tile<1>(dst, sqn, lo + n0, sq, rows, acc);
-                             });
-          }
+          auto epi = [&](int, int n0, int s0, float (&acc)[TT::RT][TT::CT], int) {
+            cl_bias_relu(acc, bias, n0);
+            cl_store_ilv(dst, tw, lo + n0, s0, acc);
+          };
+          if (l)
+            cl_dense<BF16, TILED_H, TILED_NL, TT, true>(wf(l), in, tw, NoTag(), epi);
+          else if (in_pad == 32)
+            cl_dense<BF16, 32, TILED_NL, TT, false>(wf(0), X, tw, NoTag(), epi);
+          else
+            cl_dense<BF16, 16, TILED_NL, TT, false>(wf(0), X, tw, NoTag(), epi);
           pr.lap(l ? PP_HIDDEN : PP_LAYER0);
           ex.publish(dst + lo * tw, l & 1, 4 * nl * tw);
           ex.wait(l & 1, 4 * (H - nl) * tw);  // the layer's rows are in every CTA; `in` is free
           pr.lap(PP_EXCHANGE, false);
           in = dst;
-          K = H;
         }
-        if constexpr (TILED)
-          cl_dense<BF16, TILED_H, NOUT, TL, true>(
-              WL, in, tw, NoTag(),
-              [&](int, int n0, int s0, float (&acc)[TL::RT][TL::CT], int) {
+        cl_dense<BF16, TILED_H, NOUT, TL, true>(
+            WL, in, tw, NoTag(), [&](int, int n0, int s0, float (&acc)[TL::RT][TL::CT], int) {
 #pragma unroll
-                for (int i = 0; i < TL::RT; ++i)
+              for (int i = 0; i < TL::RT; ++i)
 #pragma unroll
-                  for (int j = 0; j < TL::CT; ++j)
-                    acc[i][j] = acc[i][j] + Bs[L * nmax + n0 + i];
-                cl_store(R, tw, n0, s0, acc);
-              });
-        else
-          dense_out_tw<BF16>(WL, Bs + L * nmax, in, R, K, tw);
+                for (int j = 0; j < TL::CT; ++j) acc[i][j] = acc[i][j] + Bs[L * nmax + n0 + i];
+              cl_store(R, tw, n0, s0, acc);
+            });
         pr.lap(PP_LAST);
         // with L odd the last layer read Ha, which the next stage's first product fills
         if (L & 1) cluster_barrier();
@@ -433,46 +414,48 @@ extern "C" int fused_rk4_fwd_tile(int* tile) {
 }
 
 // The cluster route at tile width tw: sizes[0] = CTAs per tile, sizes[1] = 1
-// when a CTA's shared memory holds these widths, sizes[2] = its bytes,
-// sizes[3] = clusters the card runs at once (0 where they do not fit),
-// sizes[4] = the product variants built for these widths at tw (bit v for
-// Products v, products_fit).
+// when a product variant runs these widths at tw and a CTA's shared memory
+// holds them (else they take the wide route), sizes[2] = its bytes, sizes[3] =
+// clusters the card runs at once (0 where the route does not fit), sizes[4] =
+// the variant it launches (Products; PRODUCTS_NONE where none runs them).
 extern "C" int fused_rk4_fwd_cluster(int in_pad, int H, int n_layers, int tw, long long* sizes) {
   if (tw < 4 || tw > WTILE || tw % 4 != 0 || H < 4 || H % 4 != 0 || in_pad < 4 ||
       in_pad % 4 != 0 || n_layers < 1)
     return (int)cudaErrorInvalidValue;
+  const int products = cluster_products(in_pad, H, tw);
   const size_t smem = fwd_cluster_smem(in_pad, H, n_layers, tw);
   sizes[0] = CLUSTER;
-  sizes[1] = smem <= (size_t)SMEM_LIMIT;
+  sizes[1] = products != PRODUCTS_NONE && smem <= (size_t)SMEM_LIMIT;
   sizes[2] = (long long)smem;
   sizes[3] = 0;
-  sizes[4] = 0;
-  for (int v = 0; v < PRODUCTS_N; ++v) sizes[4] |= (long long)products_fit(v, in_pad, H, tw) << v;
+  sizes[4] = products;
   if (!sizes[1]) return 0;
   int clusters = 0;
   const cudaError_t err =
-      max_clusters(fused_rk4_fwd_kernel_cluster<false, PRODUCTS_GENERIC>, smem, &clusters);
+      products == PRODUCTS_NARROW
+          ? max_clusters(fused_rk4_fwd_kernel_cluster<false, PRODUCTS_NARROW>, smem, &clusters)
+          : max_clusters(fused_rk4_fwd_kernel_cluster<false, PRODUCTS_WIDE>, smem, &clusters);
   sizes[3] = clusters;
   return (int)err;
 }
 
 // tw: 0 for the wide route (64-sample tiles, one block each), else the
 // cluster route with tiles of tw samples (a multiple of 4, at most 64), one
-// cluster each, and its product variant `products` (Products; products_fit).
-// The caller chooses both (hybrid_ode_torch/ops/fused_rk4.py).
+// cluster each, where fused_rk4_fwd_cluster says it fits; the caller chooses
+// (hybrid_ode_torch/ops/fused_rk4.py). The cluster route's product variant
+// follows from the widths (cluster_products).
 extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal,
                              const float* tvns, const float* ctx,
                              const float* wpack, const float* pvec,
                              const int* cidx, float* out, int B, int T, int C,
                              int in_pad, int H, int n_layers, int substeps,
-                             int n_cp, int abs_mode, int bf16, int tw, int products,
-                             void* stream) {
+                             int n_cp, int abs_mode, int bf16, int tw, void* stream) {
+  const int products = tw ? cluster_products(in_pad, H, tw) : PRODUCTS_NONE;
   if (B < 1 || T < 1 || C < 0 || H < 4 || H % 4 != 0 || in_pad % 4 != 0 ||
       in_pad < NF + (n_cp ? 0 : C) || n_layers < 1 || substeps < 1 ||
       n_cp < 0 || n_cp > NP || (n_cp && n_cp != C) || (C && !ctx) ||
       (n_cp && !cidx) || (long long)T * NS * B > 0x7fffffffLL ||  // int offsets
-      tw < 0 || tw > WTILE || tw % 4 != 0 || products < 0 || products >= PRODUCTS_N ||
-      (tw && !products_fit(products, in_pad, H, tw)))
+      tw < 0 || tw > WTILE || tw % 4 != 0 || (tw && products == PRODUCTS_NONE))
     return (int)cudaErrorInvalidValue;
   if (tw) {
     const size_t smem = fwd_cluster_smem(in_pad, H, n_layers, tw);
@@ -485,11 +468,8 @@ extern "C" int fused_rk4_fwd(const float* y0, const float* ts, const float* meal
     if (products == PRODUCTS_NARROW)
       return bf16 ? go(launch_cluster<true, PRODUCTS_NARROW>)
                   : go(launch_cluster<false, PRODUCTS_NARROW>);
-    if (products == PRODUCTS_WIDE)
-      return bf16 ? go(launch_cluster<true, PRODUCTS_WIDE>)
-                  : go(launch_cluster<false, PRODUCTS_WIDE>);
-    return bf16 ? go(launch_cluster<true, PRODUCTS_GENERIC>)
-                : go(launch_cluster<false, PRODUCTS_GENERIC>);
+    return bf16 ? go(launch_cluster<true, PRODUCTS_WIDE>)
+                : go(launch_cluster<false, PRODUCTS_WIDE>);
   }
   size_t smem;
   int wcap, staged;

@@ -32,15 +32,17 @@
 // [split_lo(N, r), split_lo(N, r + 1)) of each hidden layer (and of the
 // adjoint's input cotangents), keeps the slice W[:, rows] of those layers and
 // its biases in shared memory for the whole launch (read from L2 once a
-// launch, not once a stage), and computes its rows for all tw samples in one
-// of three product variants (Products, below; the launcher picks one from tw
-// and the widths). It writes them into its own copy of the layer's buffer;
-// the Exchange copies that block into every other CTA (one bulk copy each
-// through distributed shared memory, completing on the receiver's mbarrier),
-// so a product costs one wait on local bytes, not a cluster barrier. The
-// per-sample work (mechanistic drift, RK4 state, stage sums, the 8-row last
-// layer) runs redundantly in every CTA on identical operands, so it needs no
-// exchange.
+// launch, not once a stage), and computes its rows for all tw samples in the
+// product variant built for its tile width (Products, below; the library
+// picks it, cluster_products). It writes them into its own copy of the
+// layer's buffer; the Exchange copies that block into every other CTA (one
+// bulk copy each through distributed shared memory, completing on the
+// receiver's mbarrier), so a product costs one wait on local bytes, not a
+// cluster barrier. The per-sample work (mechanistic drift, RK4 state, stage
+// sums, the 8-row last layer) runs redundantly in every CTA on identical
+// operands, so it needs no exchange. The variants are built for the widths
+// of the shipped models only (H = 128, in_pad 16 or 32); other widths take
+// the wide route.
 //   * Why by N and never by K: a split of the contraction would split the sum
 //     above into partial sums added in another order. Split by N, every output
 //     is the same k-ascending fmaf chain as on the wide route, so trajectories
@@ -50,23 +52,22 @@
 //     A 128-deep output is 128 dependent fmaf (about 4.5 cycles each: 570
 //     cycles); one warp alone issues about an instruction every 2.5 cycles;
 //     a warp's 16-byte shared load takes 4 cycles of the SM's load path where
-//     a quarter-warp reads 8 addresses, 2 where it reads one. The generic
-//     variant (one row x 4 samples a thread, a scalar weight and a float4 of
-//     samples a k) waited on shared memory at every k: 3.7k cycles a 128-deep
-//     product at tw = 32, 3.2k at tw = 4. The tiled ones load 4 k of a weight
-//     row and 4 k of a sample per 16-byte load, unrolled with compile-time
-//     offsets and loaded ahead: 'narrow' (an output a thread, 64 threads at
-//     tw = 4) runs near its chains, 0.87k cycles; 'wide' (2 x 2 tiles, 128
-//     threads at tw = 32) at the load path, 2.0k. Measured on an H100 with
-//     clock64 probes (kernel_probes.py, PERF.md section 6): a forward stage
-//     12.7k cycles at tw = 32 (20.6k generic: 0.4k drift, 0.8k layer 0,
-//     3 x 2.0k hidden, 4 x 1.0k exchanges, 1.2k last layer, 0.4k the rest)
+//     a quarter-warp reads 8 addresses, 2 where it reads one. Products of one
+//     row x 4 samples a thread (a scalar weight and a float4 of samples a k)
+//     waited on shared memory at every k: 3.7k cycles a 128-deep product at
+//     tw = 32, 3.2k at tw = 4. The tiled ones load 4 k of a weight row and 4 k
+//     of a sample per 16-byte load, unrolled with compile-time offsets and
+//     loaded ahead: 'narrow' (an output a thread, 64 threads at tw = 4) runs
+//     near its chains, 0.87k cycles; 'wide' (2 x 2 tiles, 128 threads at
+//     tw = 32) at the load path, 2.0k. Measured on an H100 with clock64
+//     probes (kernel_probes.py, PERF.md section 6): a forward stage 12.7k
+//     cycles at tw = 32 (20.6k with one row a thread: 0.4k drift, 0.8k layer
+//     0, 3 x 2.0k hidden, 4 x 1.0k exchanges, 1.2k last layer, 0.4k the rest)
 //     and 9.0k at tw = 4 (18.4k), where the exchanges are 3.7k of it.
 //   * Shared memory (CTA, floats): the weight slices, slice_floats of each
-//     forward product's (room for the generic layout, [K][rows], and the
-//     tiled one, [rows][K + 4]), the whole last layer ((H + 4) x 8) and the
-//     CTA's biases, then tw x (in_pad + 2 H + 8) of activations and 6 of
-//     mbarriers; at H = 128, 16 context features, L = 4: 32 KB of weights,
+//     forward product's ([rows][K + 4]), the whole last layer ((H + 4) x 8)
+//     and the CTA's biases, then tw x (in_pad + 2 H + 8) of activations and 6
+//     of mbarriers; at H = 128, 16 context features, L = 4: 32 KB of weights,
 //     76 KB of activations at tw = 64. The adjoint adds its transposed slices
 //     (28 KB), the per-sample state and phase 3's ring (fused_rk4_bwd.cu).
 
@@ -235,21 +236,20 @@ struct Int {
   static constexpr int value = V;
 };
 
-// For every tile t of the (N x 4 sqn) product
-//   acc[i][j] = sum_k W[k * ldw + n0 + i] * in[k][4 sq + j],  k ascending,
+// For every tile t of the (N x WTILE) product
+//   acc[i][j] = sum_k W[k * N + n0 + i] * in[k][4 sq + j],  k ascending,
 // calls tag = pre(t) before the sum and epi(t, n0, sq, rows, acc, tag) after
 // it; rows (RT, or 4 in the last tile when RT = 8 and N % 8 = 4) of acc are
-// valid. W is (K, N) with rows of ldw floats (N and ldw multiples of 4 unless
-// RT = 1); `in` is [K][4 sqn]. BF16: `in` is read rounded (the weights arrive
-// rounded).
+// valid. W is (K, N) row-major (N a multiple of 4); `in` is [K][WTILE].
+// BF16: `in` is read rounded (the weights arrive rounded).
 template <bool BF16, int RT, class Pre, class Epi>
-__device__ __forceinline__ void dense_w(const float* __restrict__ W, int ldw, const float* in,
-                                        int sqn, int K, int N, Pre pre, Epi epi) {
-  static_assert(RT == 1 || RT == 4 || RT == 8, "row tile");
-  const int l4 = ldw / 4;
-  const int n_tiles = ((N + RT - 1) / RT) * sqn;
+__device__ __forceinline__ void dense_w(const float* __restrict__ W, const float* in, int K,
+                                        int N, Pre pre, Epi epi) {
+  static_assert(RT == 4 || RT == 8, "row tile");
+  const int l4 = N / 4;
+  const int n_tiles = ((N + RT - 1) / RT) * WSQ;
   for (int t = threadIdx.x; t < n_tiles; t += NTHREADS) {
-    const int sq = t % sqn, n0 = (t / sqn) * RT;
+    const int sq = t % WSQ, n0 = (t / WSQ) * RT;
     const bool full = n0 + RT <= N;
     const float4* w4 = reinterpret_cast<const float4*>(W + n0);
     const float4* a4 = reinterpret_cast<const float4*>(in) + sq;
@@ -271,7 +271,7 @@ __device__ __forceinline__ void dense_w(const float* __restrict__ W, int ldw, co
             const float4 w = w4[k * l4 + q];
             wv[4 * q] = w.x; wv[4 * q + 1] = w.y; wv[4 * q + 2] = w.z; wv[4 * q + 3] = w.w;
           }
-          const float4 a = a4[k * sqn];
+          const float4 a = a4[k * WSQ];
           av[0] = operand<BF16>(a.x); av[1] = operand<BF16>(a.y);
           av[2] = operand<BF16>(a.z); av[3] = operand<BF16>(a.w);
         }
@@ -281,42 +281,7 @@ __device__ __forceinline__ void dense_w(const float* __restrict__ W, int ldw, co
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
       }
     };
-    if constexpr (RT == 1) {
-      // One row (the cluster route): one warp a scheduler, so every k would
-      // wait on shared memory. Two register sets alternate: the next
-      // DENSE_UNROLL k's operands load while these multiply.
-      const float* w = W + n0;
-      float wa[DENSE_UNROLL], wb[DENSE_UNROLL];
-      float4 xa[DENSE_UNROLL], xb[DENSE_UNROLL];
-      auto load = [&](float (&wv)[DENSE_UNROLL], float4 (&xv)[DENSE_UNROLL], int k0) {
-#pragma unroll
-        for (int u = 0; u < DENSE_UNROLL; ++u) {
-          wv[u] = w[(k0 + u) * ldw];
-          xv[u] = a4[(k0 + u) * sqn];
-        }
-      };
-      auto mul = [&](float wk, float4 xk) {
-        acc[0][0] = fmaf(wk, operand<BF16>(xk.x), acc[0][0]);
-        acc[0][1] = fmaf(wk, operand<BF16>(xk.y), acc[0][1]);
-        acc[0][2] = fmaf(wk, operand<BF16>(xk.z), acc[0][2]);
-        acc[0][3] = fmaf(wk, operand<BF16>(xk.w), acc[0][3]);
-      };
-      auto mul_all = [&](const float (&wv)[DENSE_UNROLL], const float4 (&xv)[DENSE_UNROLL]) {
-#pragma unroll
-        for (int u = 0; u < DENSE_UNROLL; ++u) mul(wv[u], xv[u]);
-      };
-      const int kg = K / DENSE_UNROLL * DENSE_UNROLL;  // k in whole groups, then the rest
-      if (kg) load(wa, xa, 0);
-      for (int k0 = 0; k0 < kg; k0 += 2 * DENSE_UNROLL) {
-        const bool second = k0 + DENSE_UNROLL < kg;
-        if (second) load(wb, xb, k0 + DENSE_UNROLL);
-        mul_all(wa, xa);
-        if (!second) break;
-        if (k0 + 2 * DENSE_UNROLL < kg) load(wa, xa, k0 + 2 * DENSE_UNROLL);
-        mul_all(wb, xb);
-      }
-      for (int k = kg; k < K; ++k) mul(w[k * ldw], a4[k * sqn]);
-    } else if (full) {
+    if (full) {
       rows(Int<0>(), Int<RT>());
     } else if constexpr (RT > 4) {
       rows(Int<0>(), Int<4>());
@@ -325,48 +290,31 @@ __device__ __forceinline__ void dense_w(const float* __restrict__ W, int ldw, co
   }
 }
 
-// The wide route's product: all N rows of W (K, N) row-major on a WTILE-sample tile.
-template <bool BF16, int RT, class Pre, class Epi>
-__device__ __forceinline__ void dense_w(const float* __restrict__ W, const float* in, int K,
-                                        int N, Pre pre, Epi epi) {
-  dense_w<BF16, RT>(W, N, in, WSQ, K, N, pre, epi);
-}
-
 struct NoTag {
   __device__ __forceinline__ int operator()(int) const { return 0; }
 };
 
-// out[n0 + i][4 sq ..] = v[i][..] for i < rows: a tile into an [N][4 sqn] buffer.
+// out[n0 + i][4 sq ..] = v[i][..] for i < rows: a tile into an [N][WTILE] buffer.
 template <int RT>
-__device__ __forceinline__ void store_tile(float* out, int sqn, int n0, int sq, int rows,
+__device__ __forceinline__ void store_tile(float* out, int n0, int sq, int rows,
                                            const float (&v)[RT][4]) {
 #pragma unroll
   for (int i = 0; i < RT; ++i)
     if (i < rows)
-      reinterpret_cast<float4*>(out)[(n0 + i) * sqn + sq] =
+      reinterpret_cast<float4*>(out)[(n0 + i) * WSQ + sq] =
           make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
 }
 
-// The same into an [N][WTILE] buffer.
-template <int RT>
-__device__ __forceinline__ void store_tile(float* out, int n0, int sq, int rows,
-                                           const float (&v)[RT][4]) {
-  store_tile<RT>(out, WSQ, n0, sq, rows, v);
-}
-
 // v[i][..] = relu(v[i][..] + bias[n0 + i]); returns bit 4 i + j set where the
-// result is > 0 (NaN propagates, as max(x, 0); its bit is clear). SMEM: the
-// biases lie in shared memory (the cluster route), else in global memory.
-template <int RT, bool SMEM = false>
+// result is > 0 (NaN propagates, as max(x, 0); its bit is clear).
+template <int RT>
 __device__ __forceinline__ unsigned bias_relu(float (&v)[RT][4], const float* __restrict__ bias,
                                               int n0, int rows) {
   unsigned bits = 0;
 #pragma unroll
   for (int i = 0; i < RT; ++i)
     if (i < rows) {
-      float b;
-      if constexpr (SMEM) b = bias[n0 + i];
-      else b = __ldg(bias + n0 + i);
+      const float b = __ldg(bias + n0 + i);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float x = v[i][j] + b;
@@ -394,70 +342,6 @@ __device__ __forceinline__ void dense_out(const float* __restrict__ W,
   }
   R[r0 * WTILE + s] = a0 + __ldg(bias + r0);
   R[r1 * WTILE + s] = a1 + __ldg(bias + r1);
-}
-
-// sum_k w[k * ws] * x[k * xs] for k ascending from 0 by fmaf, for NC chains
-// at once: the last layer's outputs on the cluster route, where a thread has
-// one or two of them and would otherwise wait on shared memory at every k.
-// Two register sets alternate as in dense_w.
-template <bool BF16, int NC>
-__device__ __forceinline__ void dot_chains(const float* const (&w)[NC], int ws,
-                                           const float* const (&x)[NC], int xs, int K,
-                                           float (&acc)[NC]) {
-  constexpr int U = DENSE_UNROLL;
-  float wa[NC][U], wb[NC][U], xa[NC][U], xb[NC][U];
-  auto load = [&](float (&wv)[NC][U], float (&xv)[NC][U], int k0) {
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        wv[c][u] = w[c][(k0 + u) * ws];
-        xv[c][u] = x[c][(k0 + u) * xs];
-      }
-  };
-  auto mul = [&](const float (&wv)[NC][U], const float (&xv)[NC][U]) {
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[c] = fmaf(wv[c][u], operand<BF16>(xv[c][u]), acc[c]);
-  };
-  const int kg = K / U * U;
-  if (kg) load(wa, xa, 0);
-  for (int k0 = 0; k0 < kg; k0 += 2 * U) {
-    const bool second = k0 + U < kg;
-    if (second) load(wb, xb, k0 + U);
-    mul(wa, xa);
-    if (!second) break;
-    if (k0 + 2 * U < kg) load(wa, xa, k0 + 2 * U);
-    mul(wb, xb);
-  }
-  for (int k = kg; k < K; ++k)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = fmaf(w[c][k * ws], operand<BF16>(x[c][k * xs]), acc[c]);
-}
-
-// The last layer on a tile of tw samples (the cluster route): output (n, s)
-// by thread n * tw + s and, where 8 tw outputs outnumber the threads, the one
-// NTHREADS further on beside it; each sums k ascending from 0, then adds the
-// bias (in shared memory), as dense_out does.
-template <bool BF16>
-__device__ __forceinline__ void dense_out_tw(const float* W, const float* bias, const float* in,
-                                             float* R, int K, int tw) {
-  const int n_out = NOUT * tw, o = threadIdx.x, o1 = o + NTHREADS;
-  if (o1 < n_out) {
-    const float* const w[2] = {W + o / tw, W + o1 / tw};
-    const float* const x[2] = {in + o % tw, in + o1 % tw};
-    float acc[2] = {0.f, 0.f};
-    dot_chains<BF16, 2>(w, NOUT, x, tw, K, acc);
-    R[o] = acc[0] + bias[o / tw];
-    R[o1] = acc[1] + bias[o1 / tw];
-  } else if (o < n_out) {
-    const float* const w[1] = {W + o / tw};
-    const float* const x[1] = {in + o % tw};
-    float acc[1] = {0.f};
-    dot_chains<BF16, 1>(w, NOUT, x, tw, K, acc);
-    R[o] = acc[0] + bias[o / tw];
-  }
 }
 
 // First of the rows [0, N) that CTA r of a cluster owns on the cluster route.
@@ -579,24 +463,15 @@ inline cudaError_t max_clusters(Kernel kernel, size_t smem, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
 }
 
-// W[k * ldw + n] for n in [lo, lo + n_own) of every k < K into dst[k][n_own]:
-// a CTA's slice of a layer, read once a launch.
-__device__ __forceinline__ void load_slice(float* dst, const float* __restrict__ W, int ldw, int K,
-                                           int lo, int n_own) {
-  for (int i = threadIdx.x; i < K * n_own; i += NTHREADS)
-    dst[i] = W[(i / n_own) * ldw + lo + i % n_own];
-}
-
-// ---- The cluster route's tiled products (PRODUCTS_NARROW, PRODUCTS_WIDE
-// below; PRODUCTS_GENERIC keeps dense_w's RT = 1 and dense_out_tw). The wide
-// route's dense_w, dense_out and outer_w do not use them.
+// ---- The cluster route's products (PRODUCTS_NARROW, PRODUCTS_WIDE below).
+// The wide route's dense_w, dense_out and outer_w do not use them.
 
 // Floats a row of a k-contiguous weight slice takes: K and 4 more, so that
 // the float4 at k of rows n and n + 1 lie 4 banks apart.
 __host__ __device__ constexpr int slice_ld(int K) { return K + 4; }
 
-// Floats of a CTA's slices of K x N products, [n][slice_ld(K)] for its rows
-// of N (load_rows) or [K][rows] (load_slice): room for either.
+// Floats of a CTA's slice of a K x N product: [n][slice_ld(K)] for its rows
+// of N (load_rows).
 __host__ __device__ inline int slice_floats(int K, int N) { return slice_ld(K) * split_max(N); }
 
 // W[k * ldw + lo + n] for k < K, n < n_own into dst[n][slice_ld(K)]: a CTA's
@@ -613,7 +488,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 // tw / CT tiles of a row group lie on P lanes, P the power of 2 >= sg (lanes
 // past sg idle), so that a thread finds its tile with a shift and a mask. A
 // variant is built only where that takes at most NTHREADS lanes
-// (products_fit): a thread has one tile at most.
+// (cluster_products): a thread has one tile at most.
 template <int RT_, int CT_>
 struct Tile {
   static constexpr int RT = RT_, CT = CT_;
@@ -627,7 +502,7 @@ struct Tile {
   // Phase 1 of the adjoint keeps a tile's ReLU bits (bit CT i + j) for phase
   // 2, whose transposed product of the same width has the same tiles. A tile
   // of one output shares one word with its warp (word idx / 32; 'narrow' is
-  // built only where a product's tiles fill whole warps: tw a power of 2); a
+  // taken only where a product's tiles fill whole warps: tw a power of 2); a
   // larger tile has word idx of its own: at most 4 tw words of a 16-row slice.
   __device__ static void put_mask(unsigned* mk, int t, unsigned bits) {
     static_assert(RT * CT == 1 || RT * CT >= 4, "a ReLU mask: a warp's ballot, or a word a tile");
@@ -655,7 +530,7 @@ struct Tile {
 // read consecutive samples. K and N are compile-time: the loop is unrolled
 // whole, every weight address is an immediate offset, and each quad of k is
 // loaded AHEAD quads before its fmaf, so the chain does not wait on shared
-// memory (the RT = 1 loop of dense_w waited about 28 cycles a k). BF16: `in`
+// memory (a loop that loads one k at a time waited about 28 cycles a k). BF16: `in`
 // is read rounded.
 template <bool BF16, int K, int N, class T, bool ILV, class Pre, class Epi>
 __device__ __forceinline__ void cl_dense(const float* W, const float* in, int tw, Pre pre,
@@ -770,29 +645,29 @@ __device__ __forceinline__ void cl_store_ilv(float* out, int tw, int r0, int s0,
   }
 }
 
-// The cluster route's product variants. The launcher picks one from the tile
-// width and the widths (hybrid_ode_torch/ops/fused_rk4.py, _cluster_products);
-// a kernel instance holds one.
-//   PRODUCTS_GENERIC  any widths: dense_w's RT = 1 (one row x 4 samples a
-//                     thread) and dense_out_tw on slices [K][rows] (load_slice)
-//                     and activations [rows][tw];
-//   PRODUCTS_NARROW   H = TILED_H, in_pad 16 or 32, tw 4, 8 or 16: cl_dense on
-//                     Tile<1, 1>, an output a thread (the launcher: tw <= 8);
-//   PRODUCTS_WIDE     the same widths, any tw: Tile<2, 2>.
-// The tiled two keep k-contiguous weight rows (load_rows) and the hidden
-// layers' activations and cotangents 4 rows of a sample together
-// (cl_store_ilv); the features, the residual and dX stay [rows][tw].
-enum Products { PRODUCTS_GENERIC, PRODUCTS_NARROW, PRODUCTS_WIDE, PRODUCTS_N };
-constexpr int TILED_H = 128;                   // hidden width the tiled variants are built for
+// The cluster route's product variants; a kernel instance holds one. Both
+// are built for H = TILED_H with in_pad 16 or 32, the shipped models' widths:
+//   PRODUCTS_NARROW   cl_dense on Tile<1, 1>, an output a thread;
+//   PRODUCTS_WIDE     Tile<2, 2>.
+// Both keep k-contiguous weight rows (load_rows) and the hidden layers'
+// activations and cotangents 4 rows of a sample together (cl_store_ilv); the
+// features, the residual and dX stay [rows][tw]. PRODUCTS_NONE: no cluster
+// route for the widths.
+enum Products { PRODUCTS_NONE, PRODUCTS_NARROW, PRODUCTS_WIDE };
+constexpr int TILED_H = 128;                   // hidden width the variants are built for
 constexpr int TILED_NL = TILED_H / CLUSTER;    // rows of it a CTA owns
 static_assert(TILED_H % (4 * CLUSTER) == 0, "a CTA's rows are whole quads");
+// The widest tile that takes 'narrow': one output a thread beats 2 x 2 tiles
+// up to 8 samples (PERF.md section 6). Its tile widths, 4 and 8, are powers
+// of 2 whose outputs of a CTA's rows fill whole warps of its threads.
+constexpr int WIDEST_NARROW_TILE = 8;
+static_assert(WIDEST_NARROW_TILE <= 8 && TILED_NL * WIDEST_NARROW_TILE <= NTHREADS, "narrow tiles");
+static_assert((TILED_NL / 2) * (WTILE / 2) <= NTHREADS, "a 2 x 2 tile a thread at tw = WTILE");
 
-// Whether variant v runs these widths at tile width tw.
-__host__ __device__ inline bool products_fit(int v, int in_pad, int H, int tw) {
-  if (v == PRODUCTS_GENERIC) return true;
-  if (H != TILED_H || (in_pad != 16 && in_pad != 32)) return false;
-  if (v == PRODUCTS_NARROW) return TILED_NL * tw <= NTHREADS && (tw & (tw - 1)) == 0;
-  return v == PRODUCTS_WIDE;
+// The variant that runs these widths at tile width tw, or PRODUCTS_NONE.
+__host__ __device__ inline int cluster_products(int in_pad, int H, int tw) {
+  if (H != TILED_H || (in_pad != 16 && in_pad != 32)) return PRODUCTS_NONE;
+  return tw <= WIDEST_NARROW_TILE ? PRODUCTS_NARROW : PRODUCTS_WIDE;
 }
 
 // The thread tile of variant V's products of N rows: an output a thread on

@@ -18,11 +18,13 @@ layer in shared memory and share the forward products
 forward and the hand adjoint have a second route for small batches: a tile
 of min(64, B rounded up to 4) samples on a cluster of CTAs that split every
 product's output rows and keep their weight slices in shared memory
-(`_cluster_route` says when; the results equal the wide route's bitwise), in
-one of three product variants (`_cluster_products` picks it from the tile
-width and what the library builds for the widths).
-Every tile, grid and buffer size comes from the libraries (`fwd_tile`,
-`bwd_sizes`, `vjp_sizes`): this module holds no copy of a kernel constant.
+(`_cluster_route` says when; the results equal the wide route's bitwise). It
+is built for the shipped models' widths only, in one product variant per
+tile width (PRODUCTS), which the libraries choose; other widths take the
+wide route.
+Every tile, grid and buffer size, and which widths the cluster route runs,
+comes from the libraries (`fwd_tile`, `bwd_sizes`, `vjp_sizes`): this module
+holds no copy of a kernel constant.
 Beside each lives its plain PyTorch version (`_fwd_plain`, `_bwd_plain`,
 `_bwd_vjp_plain`), the same function in torch ops on the same (features,
 batch) layout; `_bwd_vjp_plain` takes its transposes from torch autograd.
@@ -83,7 +85,6 @@ fused_rk4_bwd_vjp_launches = 0
 fused_rk4_cluster_launches = 0
 #: of those, the launches of each product variant (PRODUCTS); they add up to
 #: fused_rk4_cluster_launches
-fused_rk4_cluster_generic_launches = 0
 fused_rk4_cluster_narrow_launches = 0
 fused_rk4_cluster_wide_launches = 0
 
@@ -104,13 +105,9 @@ BWD_IMPLS = ("hand", *VJP_IMPLS)
 #: partitions of a tile the forward and the hand adjoint can launch on
 ROUTES = ("wide", "cluster")
 #: the cluster route's product variants, in the libraries' order (Products in
-#: csrc/fused_rk4_wide.cuh): dense_w's one row x 4 samples a thread for any
-#: widths; one output a thread; 2 x 2 tiles. The last two are built for some
-#: widths only, which the libraries report.
-PRODUCTS = ("generic", "narrow", "wide")
-#: the widest tile on which the cluster route takes 'narrow' where it may: one
-#: output a thread beats 2 x 2 tiles up to 8 samples (PERF.md section 6)
-NARROW_MAX_TILE = 8
+#: csrc/fused_rk4_wide.cuh, after PRODUCTS_NONE): one output a thread; 2 x 2
+#: tiles. The libraries take one from the tile width and report it.
+PRODUCTS = ("narrow", "wide")
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -593,7 +590,7 @@ def _load_libraries(defines: Tuple[str, ...]) -> Dict[str, ctypes.CDLL]:
     p, i = ctypes.c_void_p, ctypes.c_int
     sizes = ctypes.POINTER(ctypes.c_longlong)
     fwd = libs["fused_rk4_fwd"].fused_rk4_fwd
-    fwd.argtypes = [p] * 9 + [i] * 12 + [p]
+    fwd.argtypes = [p] * 9 + [i] * 11 + [p]
     fwd.restype = i
     libs["fused_rk4_fwd"].fused_rk4_fwd_tile.argtypes = [ctypes.POINTER(i)]
     libs["fused_rk4_fwd"].fused_rk4_fwd_tile.restype = i
@@ -602,7 +599,7 @@ def _load_libraries(defines: Tuple[str, ...]) -> Dict[str, ctypes.CDLL]:
     bwd_lib = libs["fused_rk4_bwd"]
     bwd_lib.fused_rk4_bwd_grid.argtypes = [i] * 8 + [sizes]
     bwd_lib.fused_rk4_bwd_grid.restype = i
-    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 14 + [p]
+    bwd_lib.fused_rk4_bwd.argtypes = [p] * 15 + [i] * 13 + [p]
     bwd_lib.fused_rk4_bwd.restype = i
     vjp_lib = libs["fused_rk4_bwd_vjp"]
     vjp_lib.fused_rk4_bwd_vjp_sizes.argtypes = [i] * 8 + [sizes]
@@ -680,7 +677,7 @@ class BwdSizes(NamedTuple):
     route: str = "wide"  # a name in ROUTES
     cluster: int = 1    # CTAs per slice: 1 on the wide route
     at_once: int = 0    # on the cluster route, the clusters the card runs at once
-    products: int = 0   # on the cluster route, the PRODUCTS built for the widths: bit v for v
+    products: Optional[str] = None  # on the cluster route, the variant it launches (PRODUCTS)
 
 
 class VjpSizes(NamedTuple):
@@ -723,58 +720,51 @@ def _cluster_tile(B: int, tile: int) -> int:
     return min(tile, _round_up(B, 4))
 
 
-def _cluster_products(tw: int, built: int) -> int:
-    """The product variant (an index of PRODUCTS) of a cluster-route launch at
-    tile width tw, from the variants the library builds for its widths at tw
-    (`built`, bit v for PRODUCTS[v]): 'narrow' up to NARROW_MAX_TILE samples,
-    where a chain of its own per output waits least; 'wide' beyond, where
-    2 x 2 tiles read fewer operands per fmaf; 'generic' where neither is
-    built for the widths."""
-    if built & 2 and tw <= NARROW_MAX_TILE:
-        return 1
-    return 2 if built & 4 else 0
+def _products(v: int) -> Optional[str]:
+    """The name in PRODUCTS of the libraries' variant v (Products), None for
+    PRODUCTS_NONE."""
+    return PRODUCTS[v - 1] if v else None
 
 
-def _count_cluster(products: int) -> None:
-    """Count a cluster-route launch of product variant `products`."""
-    global fused_rk4_cluster_launches, fused_rk4_cluster_generic_launches
+def _count_cluster(products: str) -> None:
+    """Count a cluster-route launch of product variant `products` (PRODUCTS)."""
+    global fused_rk4_cluster_launches
     global fused_rk4_cluster_narrow_launches, fused_rk4_cluster_wide_launches
     fused_rk4_cluster_launches += 1
-    if products == 1:
+    if products == "narrow":
         fused_rk4_cluster_narrow_launches += 1
-    elif products == 2:
-        fused_rk4_cluster_wide_launches += 1
     else:
-        fused_rk4_cluster_generic_launches += 1
+        fused_rk4_cluster_wide_launches += 1
 
 
 def _route(B: int, tw: int, at_once: int, fits: bool, route: Optional[str]) -> int:
     """The launch's tile width: 0 for the wide route, `tw` for the cluster
-    route. `route` None applies `_cluster_route` where the widths fit a
-    cluster's CTAs (`fits`); a name of ROUTES forces it (tests and
-    chip_smoke.py)."""
+    route. `route` None applies `_cluster_route` where the cluster route
+    runs the widths (`fits`: a product variant is built for them and a CTA
+    holds them); a name of ROUTES forces it (tests and chip_smoke.py)."""
     if route is None:
         route = "cluster" if fits and _cluster_route(B, fwd_tile(), at_once) else "wide"
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
     if route == "cluster" and not fits:
-        raise ValueError("these widths do not fit a CTA of the cluster route")
+        raise ValueError("these widths do not fit the cluster route: no product variant "
+                         "runs them, or a CTA cannot hold them")
     return tw if route == "cluster" else 0
 
 
 @functools.lru_cache(maxsize=None)
 def _fwd_cluster(in_pad: int, hidden: int, n_layers: int, tw: int,
-                 index: int) -> Tuple[bool, int, int]:
-    """(whether a CTA holds these widths, clusters card `index` runs at once,
-    the PRODUCTS built for them: bit v for v) of the forward's cluster route
-    at tile width tw, asked of the library once."""
+                 index: int) -> Tuple[bool, int, Optional[str]]:
+    """(whether the route runs these widths, clusters card `index` runs at
+    once, the variant it launches for them: a name in PRODUCTS or None) of
+    the forward's cluster route at tile width tw, asked of the library once."""
     out = (ctypes.c_longlong * 5)()
     with torch.cuda.device(index):
         err = _libraries()["fused_rk4_fwd"].fused_rk4_fwd_cluster(in_pad, hidden, n_layers, tw,
                                                                   out)
     if err != 0:
         raise RuntimeError(f"fused_rk4_fwd_cluster failed: cudaError {err}")
-    return bool(out[1]), int(out[3]), int(out[4])
+    return bool(out[1]), int(out[3]), _products(out[4])
 
 
 def _card_index(device) -> int:
@@ -807,8 +797,8 @@ def _bwd_route(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, index: int,
 def _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, tw: int,
                index: int) -> Optional[BwdSizes]:
     """The library's answer for one shape and route (tile width tw, 0 for the
-    wide route) on card `index`, asked once; None where the cluster route's
-    CTA cannot hold these widths."""
+    wide route) on card `index`, asked once; None where the cluster route
+    does not run these widths."""
     out = (ctypes.c_longlong * 9)()
     with torch.cuda.device(index):
         err = _libraries()["fused_rk4_bwd"].fused_rk4_bwd_grid(
@@ -818,7 +808,7 @@ def _bwd_sizes(B, C, in_pad, hidden, n_layers, substeps, bf16: bool, tw: int,
     if not out[6]:
         return None
     return BwdSizes(int(out[0]), int(out[1]), int(out[2]), int(out[3]), bool(out[4]),
-                    ROUTES[bool(tw)], int(out[5]), int(out[7]), int(out[8]))
+                    ROUTES[bool(tw)], int(out[5]), int(out[7]), _products(out[8]))
 
 
 def vjp_sizes(B: int, C: int, in_pad: int, hidden: int, n_layers: int, substeps: int,
@@ -866,9 +856,9 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     C, n_cp = _check_common(T, B, ts_t, meal_t, tvns_t, ctx_t, pw, pvec, ctx_param_idx)
     dev = y0.device
     tw = _cluster_tile(B, fwd_tile())
-    fits, at_once, built = _fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw, _card_index(dev))
+    fits, at_once, products = _fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw,
+                                           _card_index(dev))
     tw = _route(B, tw, at_once, fits, route)
-    products = _cluster_products(tw, built) if tw else 0
     cidx = _cidx(ctx_param_idx, dev)
     out = torch.empty((T, 6, B), dtype=torch.float32, device=dev)
     weights = _kernel_weights(pw, mlp_dtype)
@@ -878,8 +868,7 @@ def _fwd_cuda(y0, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
         err = lib.fused_rk4_fwd(
             _ptr(y0), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t), _ptr(weights),
             _ptr(pvec), _ptr(cidx), _ptr(out), B, T, C, pw.in_pad, pw.hidden, pw.n_layers,
-            substeps, n_cp, int(ctx_param_mode == "abs"), int(mlp_dtype == "bf16"), tw, products,
-            stream)
+            substeps, n_cp, int(ctx_param_mode == "abs"), int(mlp_dtype == "bf16"), tw, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_fwd launch failed: cudaError {err}")
     fused_rk4_fwd_launches += 1
@@ -924,7 +913,6 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
     bf16 = int(mlp_dtype == "bf16")
     sizes = _bwd_route(B, C, in_pad, H, L, substeps, bool(bf16), _card_index(dev), route)
     tw = sizes.tile if sizes.route == "cluster" else 0
-    products = _cluster_products(tw, sizes.products) if tw else 0
     n_w = pw.flat.numel()
     empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     ybar0, dp, dflat = empty((B, 6)), empty((N_PARAMS, B)), empty((n_w,))
@@ -938,12 +926,12 @@ def _bwd_cuda(traj, gbar, ts_t, meal_t, tvns_t, ctx_t, pw: PackedWeights, pvec,
             _ptr(traj), _ptr(gbar), _ptr(ts_t), _ptr(meal_t), _ptr(tvns_t), _ptr(ctx_t),
             _ptr(weights), _ptr(pvec), _ptr(cidx), _ptr(ybar0), _ptr(dp), _ptr(dctx),
             _ptr(dflat), _ptr(partials), _ptr(scratch), B, T, C, in_pad, H, L, substeps,
-            n_cp, int(ctx_param_mode == "abs"), bf16, sizes.grid, n_w, tw, products, stream)
+            n_cp, int(ctx_param_mode == "abs"), bf16, sizes.grid, n_w, tw, stream)
     if err != 0:
         raise RuntimeError(f"fused_rk4_bwd launch failed: cudaError {err}")
     fused_rk4_bwd_launches += 1
     if tw:
-        _count_cluster(products)
+        _count_cluster(sizes.products)
     return ybar0, dflat, dp, dctx
 
 

@@ -48,7 +48,6 @@ COUNTERS = (
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_bwd_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_bwd_vjp_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_launches"),
-    ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_generic_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_narrow_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_wide_launches"),
     ("hybrid_ode_torch.solvers.explicit", "host_syncs"),

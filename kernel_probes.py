@@ -13,9 +13,8 @@ cohort's first 32 windows, T=61, tile width 32; one window over a day, B=1,
 T=289, tile width 4) launches the forward and the hand adjoint once on the
 cluster route in the probe build, prints the mean cycles of each part, and
 times both kernels in both builds (CUDA events, median of 5): the probes cost
-a barrier at the end of each part that has none. It does so for the product
-variant the launcher takes at each shape and for the generic products
-(`fused_rk4.PRODUCTS`; forced), so that the two are read by the same probes.
+a barrier at the end of each part that has none. The report names the
+product variant the libraries take at each shape (`fused_rk4.PRODUCTS`).
 Writes all of it to kernel_probes.json beside chip_smoke.py's report.
 """
 
@@ -28,8 +27,7 @@ import numpy as np
 import torch
 
 from chip_smoke import OUT as SMOKE_OUT
-from chip_smoke import (CKPT, DATA, SUBSTEPS, cohort_inputs, forced_products, nvidia_smi, one_day,
-                        time_ms)
+from chip_smoke import CKPT, DATA, SUBSTEPS, cohort_inputs, nvidia_smi, one_day, time_ms
 from hybrid_ode_torch.data.dataset import create_data_arrays
 from hybrid_ode_torch.models.hybrid import config_from_dict
 from hybrid_ode_torch.ops import fused_rk4
@@ -103,20 +101,17 @@ def main():
         gbar = torch.as_tensor(np.random.default_rng(0).normal(size=(T, 6, B)).astype(np.float32),
                                device=device)
         tw = fused_rk4._cluster_tile(B, fused_rk4.fwd_tile())
-        built = fused_rk4._fwd_cluster(p[5].in_pad, p[5].hidden, p[5].n_layers, tw,
-                                       torch.cuda.current_device())[2]
-        chosen = fused_rk4.PRODUCTS[fused_rk4._cluster_products(tw, built)]
+        chosen = fused_rk4._fwd_cluster(p[5].in_pad, p[5].hidden, p[5].n_layers, tw,
+                                        torch.cuda.current_device())[2]
         report["shapes"][name] = {"B": B, "T": T, "tw": tw}
-        for label, variant in ((chosen, None), ("generic", 0)):
-            with forced_products(variant):
-                got = report["shapes"][name][label] = measure(p, gbar)
-            for kernel in ("fwd", "bwd"):
-                print(f"probes ({smi}) {name} (B={B} T={T}, tile {tw}) '{label}' {kernel}: "
-                      + "; ".join(f"{n} {v['cycles']:.0f} x{v['calls']}"
-                                  for n, v in got[f"{kernel}_cycles"].items()))
-            print(f"probes {name} '{label}': forward {got['plain build']['fwd_ms']:.3f} ms "
-                  f"({got['probe build']['fwd_ms']:.3f} with probes), adjoint "
-                  f"{got['plain build']['bwd_ms']:.3f} ms ({got['probe build']['bwd_ms']:.3f})")
+        got = report["shapes"][name][chosen] = measure(p, gbar)
+        for kernel in ("fwd", "bwd"):
+            print(f"probes ({smi}) {name} (B={B} T={T}, tile {tw}) '{chosen}' {kernel}: "
+                  + "; ".join(f"{n} {v['cycles']:.0f} x{v['calls']}"
+                              for n, v in got[f"{kernel}_cycles"].items()))
+        print(f"probes {name} '{chosen}': forward {got['plain build']['fwd_ms']:.3f} ms "
+              f"({got['probe build']['fwd_ms']:.3f} with probes), adjoint "
+              f"{got['plain build']['bwd_ms']:.3f} ms ({got['probe build']['bwd_ms']:.3f})")
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
     print(smi)

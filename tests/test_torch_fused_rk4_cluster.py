@@ -9,10 +9,10 @@ every weight and bias cotangent, dp and dctx. A leaf that may differ would
 be named in BITWISE_EXCEPTIONS with its gap and held to the plain version
 only; there is none. Both routes are also held to the plain versions at
 chip_smoke.py phase 3's limits, and a second launch must repeat the first.
-The route's product variants (`fused_rk4.PRODUCTS`, picked by the tile
-width) are each held alike: batches at the edges of their tile widths, the
-uneven widths that only the generic one runs, and every variant forced on the
-recipe's widths against the generic one.
+The route's product variants (`fused_rk4.PRODUCTS`, which the libraries take
+from the tile width) are each held alike, at batches on the edges of their
+tile widths; widths that no variant runs take the wide route, and forcing the
+cluster route on them raises.
 
 JAX-free: run on the card with
     python3 -m pytest tests/test_torch_fused_rk4_cluster.py --noconftest -q
@@ -151,12 +151,31 @@ def test_cluster_route_repeats_itself_bitwise_and_counts_its_launches(device, B,
 @pytest.mark.parametrize("hidden,n_layers,C", [(20, 3, 4), (64, 1, 0), (132, 2, 16), (128, 3, 16),
                                                (128, 1, 0)])
 def test_cluster_route_at_uneven_splits_and_odd_depth(device, hidden, n_layers, C, B):
-    """Rows that do not split evenly over the cluster (H = 20, 132; in_pad =
-    16 gives 2 rows a CTA), an odd number of hidden layers (the last layer
-    reads the buffer the next stage's first product fills), at a 'narrow' and
-    a 'wide' tile width: the generic products at H != 128, the tiled ones at
-    odd depth and at in_pad = 16 (no context)."""
+    """Widths that no product variant runs (H = 20, 64, 132): the rule takes
+    the wide route and a forced cluster route raises. An odd number of hidden
+    layers (the last layer reads the buffer the next stage's first product
+    fills) and in_pad = 16 (no context; 2 rows a CTA), at a 'narrow' and a
+    'wide' tile width: the cluster route equals the wide route bitwise."""
     packed, idx, m = _case(device, B, "features" if C else "mul", hidden, n_layers, C)
+    pw = packed[5]
+    if hidden != 128:
+        tw = fused_rk4._cluster_tile(B, TILE)
+        assert chip_smoke.expected_products(pw.in_pad, pw.hidden, tw) is None
+        rows = packed[4].shape[0]
+        sizes = fused_rk4.bwd_sizes(B, rows, pw.in_pad, pw.hidden, n_layers, SUBSTEPS)
+        assert sizes.route == "wide"
+        launches = fused_rk4.fused_rk4_cluster_launches
+        with torch.no_grad():
+            traj = fused_rk4._fwd_cuda(*packed, SUBSTEPS, idx, m)
+            fused_rk4._bwd_cuda(traj, torch.ones_like(traj), *packed[1:], SUBSTEPS, idx, m)
+        torch.cuda.synchronize()
+        assert fused_rk4.fused_rk4_cluster_launches == launches
+        with pytest.raises(ValueError, match="do not fit"):
+            fused_rk4._fwd_cuda(*packed, SUBSTEPS, idx, m, route="cluster")
+        with pytest.raises(ValueError, match="do not fit"):
+            fused_rk4._bwd_cuda(traj, torch.ones_like(traj), *packed[1:], SUBSTEPS, idx, m,
+                                route="cluster")
+        return
     runs = _both_routes(packed, idx, m, "f32")
     (traj_c, leaves_c), (traj_w, leaves_w) = runs["cluster"], runs["wide"]
     assert torch.equal(traj_c, traj_w), f"trajectory differs by {_gap(traj_c, traj_w):.3e}"
@@ -201,28 +220,27 @@ def test_bwd_sizes_on_the_rule_route_are_the_formula_sizes(device, B, C, H, L, s
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 8, 16, 32, 64])
-def test_every_product_variant_built_for_the_widths_equals_the_generic_one(device, B, monkeypatch):
-    """Each variant the libraries build for the recipe's widths at this tile
-    width, forced, against the generic products: trajectory and every adjoint
-    leaf bitwise; the libraries report the variants chip_smoke.py's formula
-    gives."""
+def test_every_product_variant_built_for_the_widths_equals_the_generic_one(device, B):
+    """The variant both libraries take for the recipe's widths at this tile
+    width is chip_smoke.py's formula's, and it is the one launched; against
+    the generic products, the wide route's (which runs every width):
+    trajectory and every adjoint leaf bitwise."""
     packed, idx, m = _case(device, B, "features")
     pw = packed[5]
     tw = fused_rk4._cluster_tile(B, TILE)
-    built = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw,
-                                   torch.cuda.current_device())[2]
-    assert built == chip_smoke.expected_products(pw.in_pad, pw.hidden, tw)
+    chosen = fused_rk4._fwd_cluster(pw.in_pad, pw.hidden, pw.n_layers, tw,
+                                    torch.cuda.current_device())[2]
+    assert chosen == chip_smoke.expected_products(pw.in_pad, pw.hidden, tw) is not None
     sizes = fused_rk4.bwd_sizes(B, 16, pw.in_pad, pw.hidden, pw.n_layers, SUBSTEPS)
-    assert sizes.products == built
-    runs = {}
-    for v, name in enumerate(fused_rk4.PRODUCTS):
-        if built >> v & 1:
-            monkeypatch.setattr(fused_rk4, "_cluster_products", lambda tw, built, v=v: v)
-            runs[name] = _both_routes(packed, idx, m, "f32")["cluster"]
-    assert set(runs) > {"generic"}
-    traj_g, leaves_g = runs.pop("generic")
-    for name, (traj, leaves) in runs.items():
-        assert torch.equal(traj, traj_g), f"{name}: trajectory differs by {_gap(traj, traj_g):.3e}"
-        differ = {n: _gap(leaves[n], leaves_g[n]) for n in leaves_g
-                  if not torch.equal(leaves[n], leaves_g[n])}
-        assert not differ, f"{name}: leaves differ from the generic products: {differ}"
+    assert sizes.route == "cluster" and sizes.products == chosen
+    variants = _variant_counts()
+    runs = _both_routes(packed, idx, m, "f32")
+    after = _variant_counts()
+    assert {v: after[v] - variants[v] for v in after} == {
+        v: 2 if v == chosen else 0 for v in fused_rk4.PRODUCTS}  # a forward, an adjoint
+    (traj_c, leaves_c), (traj_w, leaves_w) = runs["cluster"], runs["wide"]
+    assert torch.equal(traj_c, traj_w), (
+        f"{chosen}: trajectory differs by {_gap(traj_c, traj_w):.3e}")
+    differ = {n: _gap(leaves_c[n], leaves_w[n]) for n in leaves_w
+              if not torch.equal(leaves_c[n], leaves_w[n])}
+    assert not differ, f"{chosen}: leaves differ from the wide route: {differ}"

@@ -21,10 +21,11 @@ What Python adds for that is tested here on the CPU:
     once, its tile width, and that no public function took an argument for
     it (tests/test_torch_fused_rk4_cluster.py holds the
     route itself on the card);
-  * the route's product variant (`_cluster_products`) from the tile width and
-    the variants the libraries build for the widths (chip_smoke.py's
-    `expected_products`, which the card holds the libraries to), and its
-    per-variant launch counters.
+  * the route's product variant, which the libraries take from the widths
+    and the tile width (chip_smoke.py's `expected_products`, which the card
+    holds the libraries to, against the rule's constants in the kernels'
+    header), the wide route for widths no variant runs, and the per-variant
+    launch counters.
 """
 
 import inspect
@@ -52,6 +53,14 @@ _WIDE = Path(tfused.__file__).resolve().parents[1] / "csrc" / "fused_rk4_wide.cu
 TILE = int(re.search(r"constexpr int WTILE = (\d+);", _WIDE.read_text()).group(1))
 #: CTAs of a tile on the cluster route, read from the same header
 CLUSTER = int(re.search(r"constexpr int CLUSTER = (\d+);", _WIDE.read_text()).group(1))
+#: the cluster route's variants: the hidden width they are built for and the
+#: widest tile that takes 'narrow', read from the same header
+TILED_H = int(re.search(r"constexpr int TILED_H = (\d+);", _WIDE.read_text()).group(1))
+WIDEST_NARROW_TILE = int(re.search(r"constexpr int WIDEST_NARROW_TILE = (\d+);",
+                                _WIDE.read_text()).group(1))
+#: threads of a block (CTA), read from the shared header
+NTHREADS = int(re.search(r"constexpr int NTHREADS = (\d+);",
+                         _WIDE.with_name("fused_rk4_common.cuh").read_text()).group(1))
 
 
 def _rel_err(a, b):
@@ -256,32 +265,46 @@ def test_no_public_function_gains_an_argument_for_the_route(name):
 @pytest.mark.parametrize("in_pad,H,tw,want", [
     (32, 128, 4, "narrow"), (32, 128, 8, "narrow"), (32, 128, 12, "wide"), (32, 128, 16, "wide"),
     (32, 128, 20, "wide"), (32, 128, 32, "wide"), (32, 128, 36, "wide"), (32, 128, 64, "wide"),
-    (16, 128, 4, "narrow"), (16, 128, 64, "wide"), (24, 128, 4, "generic"),
-    (40, 128, 32, "generic"), (32, 64, 4, "generic"), (32, 132, 32, "generic"),
-    (16, 20, 8, "generic")])
-def test_cluster_products_follow_the_tile_width_and_the_widths(in_pad, H, tw, want):
+    (16, 128, 4, "narrow"), (16, 128, 64, "wide"), (24, 128, 4, None),
+    (40, 128, 32, None), (32, 64, 4, None), (32, 132, 32, None),
+    (16, 20, 8, None)])
+def test_cluster_products_follow_the_tile_width_and_the_widths(monkeypatch, in_pad, H, tw, want):
     """The recipe's widths (H = 128, in_pad 32; 16 without context) take one
-    output a thread up to 8 samples and 2 x 2 tiles beyond; other widths the
-    generic products."""
-    assert tfused.PRODUCTS[tfused._cluster_products(tw, expected_products(in_pad, H, tw))] == want
+    output a thread up to 8 samples and 2 x 2 tiles beyond; no variant runs
+    other widths, which the rule sends to the wide route."""
+    assert expected_products(in_pad, H, tw) == want
+    monkeypatch.setattr(tfused, "fwd_tile", lambda: TILE)
+    B = tw  # a batch that fills the tile
+    assert tfused._route(B, tw, 132 // CLUSTER, want is not None, None) == (tw if want else 0)
 
 
-@pytest.mark.parametrize("built,tw,want", [
-    (0b001, 4, "generic"), (0b001, 64, "generic"), (0b011, 8, "narrow"), (0b011, 12, "generic"),
-    (0b101, 4, "wide"), (0b111, 8, "narrow"), (0b111, 16, "wide")])
-def test_cluster_products_take_only_a_variant_the_library_builds(built, tw, want):
-    assert tfused.PRODUCTS[tfused._cluster_products(tw, built)] == want
+@pytest.mark.parametrize("in_pad,H", [(16, 128), (32, 128), (8, 128), (24, 128), (40, 128),
+                                      (32, 64), (32, 132), (16, 20)])
+def test_cluster_products_take_only_a_variant_the_library_builds(in_pad, H):
+    """chip_smoke.py's `expected_products`, which the card holds both
+    libraries to, against the constants of `cluster_products`: at H =
+    TILED_H with in_pad 16 or 32, 'narrow' up to WIDEST_NARROW_TILE samples and
+    'wide' beyond, at every tile width; no variant elsewhere. The size
+    queries report the variant as an index after PRODUCTS_NONE."""
+    for tw in range(4, TILE + 1, 4):
+        got = expected_products(in_pad, H, tw)
+        if H != TILED_H or in_pad not in (16, 32):
+            assert got is None, tw
+        else:
+            assert got == ("narrow" if tw <= WIDEST_NARROW_TILE else "wide"), tw
+    names = [tfused._products(v) for v in range(len(tfused.PRODUCTS) + 1)]
+    assert names == [None, "narrow", "wide"]
 
 
 @pytest.mark.parametrize("tw", range(4, TILE + 1, 4))
 def test_narrow_is_built_wherever_the_launcher_would_take_it(tw):
     """'narrow' gives a 16-row slice's outputs a thread each, in whole warps:
-    the library builds it where they are at most the CTA's threads and tw is a
-    power of 2, which covers every tile width the launcher takes it at."""
-    built = expected_products(32, 128, tw)
-    assert bool(built & 2) == (tw in (4, 8, 16))
-    if tw <= tfused.NARROW_MAX_TILE:
-        assert built & 2
+    every tile width the library takes it at is a power of 2 whose outputs
+    of a CTA's rows are at most its threads."""
+    got = expected_products(32, TILED_H, tw)
+    assert got == ("narrow" if tw <= WIDEST_NARROW_TILE else "wide")
+    if got == "narrow":
+        assert tw & (tw - 1) == 0 and (TILED_H // CLUSTER) * tw <= NTHREADS
 
 
 def test_variant_counters_add_up_to_the_cluster_launches(monkeypatch):
@@ -289,8 +312,8 @@ def test_variant_counters_add_up_to_the_cluster_launches(monkeypatch):
                                               for v in tfused.PRODUCTS]
     for name in names:
         monkeypatch.setattr(tfused, name, 0)
-    for v in (0, 1, 2, 2, 1, 2):
+    for v in ("narrow", "wide", "wide", "narrow", "wide"):
         tfused._count_cluster(v)
-    assert [getattr(tfused, n) for n in names] == [6, 1, 2, 3]
+    assert [getattr(tfused, n) for n in names] == [5, 2, 3]
     registered = set(profiling.counters())
     assert {f"fused_rk4.{n}" for n in names} <= registered

@@ -295,7 +295,6 @@ def test_counters_name_every_program_counter_and_trace_writes_their_change(tmp_p
     assert set(names) == {"fused_rk4.fused_rk4_fwd_launches", "fused_rk4.fused_rk4_bwd_launches",
                           "fused_rk4.fused_rk4_bwd_vjp_launches",
                           "fused_rk4.fused_rk4_cluster_launches",
-                          "fused_rk4.fused_rk4_cluster_generic_launches",
                           "fused_rk4.fused_rk4_cluster_narrow_launches",
                           "fused_rk4.fused_rk4_cluster_wide_launches", "explicit.host_syncs",
                           "mcmc.host_syncs", "mcmc.grad_evals", "mcmc.transitions",
