@@ -51,6 +51,8 @@ COUNTERS = (
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_narrow_launches"),
     ("hybrid_ode_torch.ops.fused_rk4", "fused_rk4_cluster_wide_launches"),
     ("hybrid_ode_torch.solvers.explicit", "host_syncs"),
+    ("hybrid_ode_torch.solvers.explicit", "graph_captures"),
+    ("hybrid_ode_torch.solvers.explicit", "graph_replays"),
     ("hybrid_ode_torch.inference.mcmc", "host_syncs"),
     ("hybrid_ode_torch.inference.mcmc", "grad_evals"),
     ("hybrid_ode_torch.inference.mcmc", "transitions"),

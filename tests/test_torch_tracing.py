@@ -297,6 +297,7 @@ def test_counters_name_every_program_counter_and_trace_writes_their_change(tmp_p
                           "fused_rk4.fused_rk4_cluster_launches",
                           "fused_rk4.fused_rk4_cluster_narrow_launches",
                           "fused_rk4.fused_rk4_cluster_wide_launches", "explicit.host_syncs",
+                          "explicit.graph_captures", "explicit.graph_replays",
                           "mcmc.host_syncs", "mcmc.grad_evals", "mcmc.transitions",
                           "online.adapt_steps", "online.subjects", "online.forecasts"}
     syncs = explicit.host_syncs
@@ -308,4 +309,6 @@ def test_counters_name_every_program_counter_and_trace_writes_their_change(tmp_p
     assert change["mcmc.transitions"] == 1 and change["mcmc.grad_evals"] > 1
     # the CPU runs the plain versions: no kernel launch, on either route
     assert change["fused_rk4.fused_rk4_cluster_launches"] == 0
+    # and no CUDA graph: the CPU's solves run their trial steps eagerly
+    assert change["explicit.graph_captures"] == change["explicit.graph_replays"] == 0
     assert (tmp_path / "tr" / "trace.json").read_text().count('"hode.solve"') == 1
